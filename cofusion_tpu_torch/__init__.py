@@ -1,0 +1,18 @@
+"""cofusion_tpu_torch — PyTorch + hand-written CUDA port of cofusion_tpu.
+
+The JAX package (`cofusion_tpu/`) stays the reference; this package runs the
+same engine on an NVIDIA GPU (or on the CPU, through the kernels' plain
+PyTorch versions).  It imports `torch` and never `jax`, and the engine
+imports nothing of the JAX package: `config.py`, `io/synthetic.py` and
+`utils/stopwatch.py` are the port's own, with the reference's names and
+defaults.  Only the CLI borrows the JAX package's numpy frame readers
+(`cofusion_tpu.io.readers`, .klg logs and image directories).
+
+Ported slice: the `-static` (single global model, ElasticFusion mode) frame
+path — bilateral filter (CUDA kernel), tracking, fuse/clean and the window
+splat (CUDA kernel).  See README.md and ROADMAP.md for what is still to come.
+"""
+
+__version__ = "0.1.0"
+
+from cofusion_tpu_torch.config import CameraConfig, CoFusionConfig  # noqa: F401

@@ -1,0 +1,45 @@
+"""FillIn: composite predicted maps with raw-frame data where the prediction has
+holes — PyTorch counterpart of cofusion_tpu/ops/fillin.py (the reference's
+FillIn pass, Core/Shaders/FillIn.{h,cpp}; CoFusion::predict, CoFusion.cpp:541).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from cofusion_tpu_torch.config import CameraConfig
+from cofusion_tpu_torch.ops import preprocess as pp
+from cofusion_tpu_torch.ops.rasterize import SplatMap
+
+
+class FilledPrediction(NamedTuple):
+    image: torch.Tensor   # (H, W, 3)
+    vert: torch.Tensor    # (H, W, 3) camera-frame vertices
+    normal: torch.Tensor  # (H, W, 3)
+    valid: torch.Tensor   # (H, W)
+
+
+def fill_in(
+    splat: SplatMap,
+    raw_rgb: torch.Tensor,
+    filtered_depth: torch.Tensor,
+    cam: CameraConfig,
+    depth_cutoff,
+    passthrough,
+) -> FilledPrediction:
+    """Predicted-over-raw compositing.  `passthrough` is a device bool (no
+    host branch): while tracking is lost the raw frame passes through
+    (Model::performFillIn, Model.cpp:901-910).  The reference's separate
+    image passthrough under '-ftf' is not ported (ROADMAP A14)."""
+    vmap_raw, raw_ok = pp.compute_vmap(filtered_depth, cam, depth_cutoff)
+    nmap_raw, n_ok = pp.compute_nmap(vmap_raw, raw_ok)
+    raw_ok = raw_ok & n_ok
+
+    use_pred = (splat.valid & ~passthrough)[..., None]
+    image = torch.where(use_pred, splat.image, raw_rgb)
+    vert = torch.where(use_pred, splat.vert_conf[..., :3], vmap_raw)
+    normal = torch.where(use_pred, splat.normal_rad[..., :3], nmap_raw)
+    valid = use_pred[..., 0] | raw_ok
+    return FilledPrediction(image=image, vert=vert, normal=normal, valid=valid)

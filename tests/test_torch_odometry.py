@@ -1,0 +1,159 @@
+"""cofusion_tpu_torch/ops/odometry.py against cofusion_tpu/ops/odometry.py on
+the CPU, on a synthetic frame pair: the map of frame 0 (rendered by the JAX
+package and carried across, so both trackers see the identical prediction)
+against frame 1.
+
+Bars:
+  * pyramids: rtol=1e-5, atol=1e-6 elementwise (XLA CPU contracts
+    multiply-adds into FMAs), validity masks exact;
+  * tracked pose: every entry within 1e-5 — the GN normal equations are
+    float32 sums over ~10^4 correspondences reduced in another order (a
+    different matmul), the bound `__graft_entry__.py:162-176` derives for one
+    step of fp32 reduction-order noise;
+  * correspondence counts: within 0.1% (a gate such as dist <= 0.10 m can
+    flip on a last-ulp difference of the pose being refined).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cofusion_tpu.config import CoFusionConfig, TrackingParams
+from cofusion_tpu.io.synthetic import make_sequence
+from cofusion_tpu.ops import fusion as jfu
+from cofusion_tpu.ops import odometry as jod
+from cofusion_tpu.ops import preprocess as jpp
+from cofusion_tpu.ops import rasterize as jrz
+from cofusion_tpu_torch import config as tcfg
+from cofusion_tpu_torch.ops import odometry as tod
+from cofusion_tpu_torch.ops import preprocess as tpp
+
+torch.set_num_threads(1)
+RTOL, ATOL = 1e-5, 1e-6
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.fixture(scope="module")
+def tcam(small_cam):
+    """The port's CameraConfig equal to small_cam."""
+    return tcfg.CameraConfig(**dataclasses.asdict(small_cam))
+
+
+@pytest.fixture(scope="module")
+def tconf(tcam):
+    return tcfg.CoFusionConfig(camera=tcam, max_models=1, max_surfels=1 << 17)
+
+
+@pytest.fixture(scope="module")
+def pair(small_cam):
+    cfg = CoFusionConfig(camera=small_cam, max_models=1, max_surfels=1 << 17)
+    frames, gt, _ = make_sequence(small_cam, 6, kind="orbit")
+    f0, f1 = frames[0], frames[2]
+    bil = jax.jit(jpp.bilateral_filter)
+    rgb0 = jnp.asarray(f0["rgb"], jnp.float32)
+    d0 = jnp.asarray(f0["depth"])
+    fs = jfu.make_frame_surfels(d0, bil(d0, 4.5), rgb0, small_cam, 1.0, 4.5)
+    store = jfu.initialise(fs, jnp.eye(4), 1 << 17, time=1)
+    poses = jnp.eye(4)[None]
+    pred = jax.jit(jrz.splat_predict_b, static_argnums=(2, 3))(
+        jax.tree.map(lambda a: a[None], store), poses, small_cam, cfg, 1, 200,
+        jnp.full((1,), 4.5), jnp.full((1,), 0.0),
+    )
+    intensity0 = jpp.rgb_to_intensity(rgb0)
+    so3_ref = jpp.pyr_down_gauss(jpp.pyr_down_gauss(intensity0))
+    filtered1 = np.array(bil(jnp.asarray(f1["depth"]), 4.5))
+    intensity1 = np.array(jpp.rgb_to_intensity(jnp.asarray(f1["rgb"], jnp.float32)))
+    pred_np = tuple(np.array(a) for a in pred)
+    return cfg, filtered1, intensity1, pred_np, np.array(so3_ref), np.asarray(gt[2], np.float32)
+
+
+@pytest.fixture(scope="module")
+def built(pair, small_cam, tcam, tconf):
+    """(JAX frame pyramid, port frame pyramid, JAX model pyramid, port model
+    pyramid) from the same inputs."""
+    cam = small_cam
+    cfg, filtered1, intensity1, pred_np, so3_ref, _ = pair
+    image, vert_conf, normal_rad, _, valid = pred_np
+    # eager, op by op: under jit XLA contracts the vertex/normal multiply-adds
+    # into FMAs, and finite-difference normals amplify that ulp ~100x
+    jf = jod.build_frame_pyramid(
+        jnp.asarray(filtered1), jnp.asarray(intensity1), None, 0, cam, cfg, 4.5
+    )
+    tf = tod.build_frame_pyramid(_t(filtered1), _t(intensity1), tcam, tconf, 4.5)
+    jm = jax.vmap(
+        lambda v, n, ok, im, p: jod.build_model_pyramid(v, n, ok, jpp.rgb_to_intensity(im), p, cam, cfg)
+    )(jnp.asarray(vert_conf[..., :3]), jnp.asarray(normal_rad[..., :3]), jnp.asarray(valid),
+      jnp.asarray(image), jnp.eye(4)[None])
+    tm = tod.build_model_pyramid(
+        _t(vert_conf[0, ..., :3]), _t(normal_rad[0, ..., :3]), _t(valid[0]),
+        tpp.rgb_to_intensity(_t(image[0])), torch.eye(4), tcam, tconf,
+    )
+    tm = tod.ModelPyramid(*(tuple(a[None] for a in level) for level in tm))
+    return jf, tf, jm, tm
+
+
+def test_frame_pyramid_matches(built):
+    jf, tf, _, _ = built
+    for field in tod.FramePyramid._fields:
+        for lvl, (t, j) in enumerate(zip(getattr(tf, field), getattr(jf, field))):
+            msg = f"{field}[{lvl}]"
+            if t.dtype == torch.bool:
+                np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=msg)
+            else:
+                np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=RTOL, atol=ATOL, err_msg=msg)
+
+
+def test_model_pyramid_matches(built):
+    _, _, jm, tm = built
+    for field in tod.ModelPyramid._fields:
+        for lvl, (t, j) in enumerate(zip(getattr(tm, field), getattr(jm, field))):
+            msg = f"{field}[{lvl}]"
+            if t.dtype == torch.bool:
+                np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=msg)
+            else:
+                np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=RTOL, atol=ATOL, err_msg=msg)
+
+
+def test_so3_prealign_matches(pair, small_cam, tcam):
+    _, _, intensity1, _, so3_ref, _ = pair
+    cur = np.array(jpp.pyr_down_gauss(jpp.pyr_down_gauss(jnp.asarray(intensity1))))
+    cam2 = small_cam.at_level(2)
+    Rj, ej = jax.jit(jod._so3_prealign, static_argnums=(2, 3))(jnp.asarray(so3_ref), jnp.asarray(cur), cam2, 10)
+    Rt, et = tod._so3_prealign(_t(so3_ref), _t(cur), tcam.at_level(2), 10)
+    np.testing.assert_allclose(Rt.numpy(), np.asarray(Rj), atol=1e-5)
+    np.testing.assert_allclose(et.numpy(), np.asarray(ej), rtol=1e-4)
+
+
+@pytest.mark.parametrize("icp_weight", [10.0, 100.0])
+def test_track_models_matches(pair, built, small_cam, tcam, tconf, icp_weight):
+    """Full 3-level GN solve (SO(3) pre-align + {10,5,4} iterations); at
+    icp_weight 100 the RGB term and the pre-align are off (ICP only)."""
+    cfg, _, _, _, so3_ref, gt_pose = pair
+    jf, tf, jm, tm = built
+    params = TrackingParams(icp_weight=icp_weight)
+    poses = np.eye(4, dtype=np.float32)[None]
+    res_j = jax.jit(jod.track_models, static_argnames=("cam", "cfg", "params"))(
+        jnp.asarray(poses), jf, tuple(v[None] for v in jf.valid),
+        tuple(v[None] for v in jf.rgb_ok), jm, jnp.asarray(so3_ref),
+        cam=small_cam, cfg=cfg, params=params,
+    )
+    res_t = tod.track_models(
+        _t(poses), tf, tuple(v[None] for v in tf.valid), tuple(v[None] for v in tf.rgb_ok),
+        tm, _t(so3_ref), tcam, tconf, tcfg.TrackingParams(icp_weight=icp_weight),
+    )
+    pose_j, pose_t = np.asarray(res_j.pose), res_t.pose.numpy()
+    # the tracker actually moved toward the ground truth
+    assert np.abs(pose_j[0, :3, 3] - gt_pose[:3, 3]).max() < 5e-3
+    np.testing.assert_allclose(pose_t, pose_j, atol=1e-5)
+    for f in ("icp_count", "rgb_count"):
+        np.testing.assert_allclose(
+            getattr(res_t, f).numpy(), np.asarray(getattr(res_j, f)), rtol=1e-3, err_msg=f
+        )
+    np.testing.assert_allclose(res_t.icp_error.numpy(), np.asarray(res_j.icp_error), rtol=1e-3)
