@@ -2,11 +2,10 @@
 
 The JAX package (`cofusion_tpu/`) stays the reference; this package runs the
 same engine on an NVIDIA GPU (or on the CPU, through the kernels' plain
-PyTorch versions).  It imports `torch` and never `jax`, and the engine
-imports nothing of the JAX package: `config.py`, `io/synthetic.py` and
-`utils/stopwatch.py` are the port's own, with the reference's names and
-defaults.  Only the CLI borrows the JAX package's numpy frame readers
-(`cofusion_tpu.io.readers`, .klg logs and image directories).
+PyTorch versions).  It imports `torch` and never `jax`, and no module of
+it imports anything of the JAX package: `config.py`, `io/synthetic.py`,
+`io/readers.py` (.klg logs and image directories) and `utils/stopwatch.py`
+are the port's own, with the reference's names and defaults.
 
 Ported slice: the `-static` (single global model, ElasticFusion mode) frame
 path — bilateral filter (CUDA kernel), tracking, fuse/clean and the window

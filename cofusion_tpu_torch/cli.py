@@ -12,7 +12,7 @@ the reader options -basedir, -cal, -maskdir, -depthdir, -colorprefix,
 `-device cuda|cpu`: the default is cuda, and the run fails when CUDA is
 absent; `-device cpu` runs the kernels' plain PyTorch versions on the CPU.
 The JAX CLI's other flags raise "not yet ported" with their ROADMAP item.
-Frames are read by the JAX package's numpy readers (`cofusion_tpu.io`).
+Frames are read by the port's numpy readers (`cofusion_tpu_torch/io/readers.py`).
 """
 
 from __future__ import annotations
@@ -20,8 +20,8 @@ from __future__ import annotations
 import os
 import sys
 
-from cofusion_tpu.io import readers
 from cofusion_tpu_torch.config import CameraConfig, CoFusionConfig, FusionParams, TrackingParams
+from cofusion_tpu_torch.io import readers
 from cofusion_tpu_torch.utils import export
 from cofusion_tpu_torch.utils.stopwatch import Stopwatch
 

@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into ONE
-shared library with a plain C interface, loaded with `ctypes`.  The library
-is built at first use into `cofusion_tpu_torch/_build/`, named by a hash of
-the sources and the flags, so a changed source rebuilds and an unchanged one
-loads in milliseconds.  Nothing here runs at import time: the CPU tests
-import every module on a machine without `nvcc`.
+Every `csrc/*.cu` file is compiled by its own `nvcc` for Hopper (`sm_90a`),
+all started together, and the objects are linked into ONE shared library
+with a plain C interface, loaded with `ctypes`.  The library is built at
+first use into `cofusion_tpu_torch/_build/`, named by a hash of the sources
+and the flags, so a changed source rebuilds and an unchanged one loads in
+milliseconds.  Nothing here runs at import time: the CPU tests import every
+module on a machine without `nvcc`.
 
 Numerics flags: no fast math (precise `expf`, IEEE division and `sqrtf`), and
 `-fmad=false` so no multiply-add is contracted into an FMA — the splat's ray
@@ -34,7 +35,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -45,8 +46,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     # depth, out, H, W, max_depth, stream
     "cofusion_bilateral_f32": (_P, _P, _I, _I, _F, _P),
-    # geo (B,8,H,W), best_z (B,H,W), best_tap (B,H,W), B, H, W, r, fx, fy, cx, cy, stream
-    "cofusion_splat_window_f32": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P),
+    # pos, norm, rad, valid, strides (12 x int64: batch/row/pixel of each input),
+    # best_z (B,H,W), best_tap (B,H,W), B, H, W, r, fx, fy, cx, cy, stream
+    "cofusion_splat_window_f32": (
+        _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
+        _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P,
+    ),
 }
 
 
@@ -72,42 +77,63 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
 
 
-def sources() -> list[Path]:
-    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+def sources(csrc: Path = CSRC_DIR) -> list[Path]:
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
-def _source_hash() -> str:
+def _source_hash(srcs: list[Path]) -> str:
     h = hashlib.sha256()
-    for p in sources():
+    for p in srcs:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-@functools.lru_cache(maxsize=1)
-def load() -> KernelLibrary:
-    """Build (if needed) and load the kernel library; cached per process."""
+def build(srcs: list[Path], signatures: dict) -> KernelLibrary:
+    """Build (if needed) the library of `srcs` into BUILD_DIR and load it,
+    declaring `signatures` (C name -> argtypes; every one returns an int)."""
     t0 = time.perf_counter()
-    so = BUILD_DIR / f"libcofusion_kernels_{_source_hash()}.so"
+    so = BUILD_DIR / f"libcofusion_kernels_{_source_hash(srcs)}.so"
     built, log = False, ""
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{so.stem}.{os.getpid()}"
+        nvcc = _nvcc()
+        cu = [p for p in srcs if p.suffix == ".cu"]
+        objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in cu]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)] for p, o in zip(cu, objs)]
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cu = [str(p) for p in sources() if p.suffix == ".cu"]
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        try:
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True) for c in cmds]
+            outs = [p.communicate()[0] for p in procs]
+            log = "".join(outs)
+            for cmd, proc, out in zip(cmds, procs, outs):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+            proc = subprocess.run(link, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n"
+                                   f"{proc.stdout}{proc.stderr}")
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
         os.replace(tmp, so)
         built = True
     lib = ctypes.CDLL(str(so))
-    for name, argtypes in SIGNATURES.items():
+    for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return KernelLibrary(lib=lib, path=so, built=built, seconds=time.perf_counter() - t0, log=log)
+
+
+@functools.lru_cache(maxsize=1)
+def load() -> KernelLibrary:
+    """Build (if needed) and load the port's kernel library; cached per process."""
+    return build(sources(), SIGNATURES)
 
 
 def check_launch(name: str, err: int) -> None:

@@ -8,9 +8,10 @@ t = (p.n)/(l.n); keep a hit if |l.n| >= 1e-12, |t l - p|^2 <= r^2, z > 0 and
 floor(z*4096) is strictly below the best so far (the first tap wins ties).
 
 `splat_window_plain` is the torch form of `rasterize._splat_window_xla`;
-`splat_window_cuda` packs the 8-channel geometry image exactly like
-`pallas_splat.splat_window_pallas` and launches the kernel.  `splat_window`
-picks by device: the plain version only for a CPU tensor.
+`splat_window_cuda` launches the kernel once on the inputs as they are
+(strided views included: the kernel computes `pallas_splat`'s packed p.n and
+radius^2 itself).  `splat_window` picks by device: the plain version only
+for a CPU tensor.
 
 Both take (cand_pos (B,H,W,3), cand_norm (B,H,W,3), cand_rad (B,H,W),
 cand_valid (B,H,W) bool, r, (fx, fy, cx, cy)) and return
@@ -18,6 +19,8 @@ cand_valid (B,H,W) bool, r, (fx, fy, cx, cy)) and return
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -89,31 +92,17 @@ def splat_window_plain(cand_pos, cand_norm, cand_rad, cand_valid, r: int, cam_tu
     return best_z, best_tap
 
 
-def pack_geometry(cand_pos, cand_norm, cand_rad, cand_valid) -> torch.Tensor:
-    """(B, 8, H, W) kernel input: pos, normal, p.n, radius^2 (-1 if invalid)
-    — the packing of pallas_splat.splat_window_pallas."""
-    pdn = (
-        cand_pos[..., 0] * cand_norm[..., 0]
-        + cand_pos[..., 1] * cand_norm[..., 1]
-        + cand_pos[..., 2] * cand_norm[..., 2]
-    )
-    rad2 = torch.where(cand_valid, cand_rad * cand_rad, -1.0)
-    return torch.stack(
-        [
-            cand_pos[..., 0], cand_pos[..., 1], cand_pos[..., 2],
-            cand_norm[..., 0], cand_norm[..., 1], cand_norm[..., 2],
-            pdn, rad2,
-        ],
-        dim=1,
-    ).contiguous()
+def check_window_args(cand_pos, cand_norm, cand_rad, cand_valid, r: int) -> tuple[int, ...]:
+    """Validate the kernel's inputs and return their 12 element strides:
+    (batch, row, pixel) of cand_pos, cand_norm, cand_rad, cand_valid.
 
-
-def splat_window_cuda(cand_pos, cand_norm, cand_rad, cand_valid, r: int, cam_tup):
-    """Pack the geometry image and launch csrc/splat_window.cu on the current
-    stream.  Inputs must be CUDA tensors of the shapes in the module doc."""
-    if cand_pos.device.type != "cuda":
-        raise ValueError(f"splat_window_cuda needs CUDA tensors, got {cand_pos.device}")
+    The kernel reads the index map's views as they are, so any strides are
+    taken (`vert_conf[..., :3]` of a (B, H, W, 4) tensor has a pixel stride
+    of 4) as long as the three channels of cand_pos and cand_norm lie at
+    stride 1.  Raises ValueError on a wrong shape, dtype or device, a
+    channel stride other than 1, or a negative radius."""
     B, H, W = cand_valid.shape
+    strides = []
     for name, t, shape, dtype in (
         ("cand_pos", cand_pos, (B, H, W, 3), torch.float32),
         ("cand_norm", cand_norm, (B, H, W, 3), torch.float32),
@@ -125,19 +114,36 @@ def splat_window_cuda(cand_pos, cand_norm, cand_rad, cand_valid, r: int, cam_tup
                 f"splat_window_cuda: {name} is {t.dtype} {tuple(t.shape)} on {t.device}, "
                 f"expected {dtype} {shape} on {cand_pos.device}"
             )
+        if t.dim() == 4 and t.stride(3) != 1:
+            raise ValueError(f"splat_window_cuda: {name} has channel stride {t.stride(3)}, needs 1")
+        strides.extend(t.stride()[:3])
     if r < 0:
         raise ValueError(f"splat_window_cuda: negative radius {r}")
+    return tuple(strides)
+
+
+def splat_window_cuda(cand_pos, cand_norm, cand_rad, cand_valid, r: int, cam_tup):
+    """Launch csrc/splat_window.cu on the current stream, once, straight on
+    the given views (no packing, no copy).  Inputs must be CUDA tensors as
+    `check_window_args` describes."""
+    if cand_pos.device.type != "cuda":
+        raise ValueError(f"splat_window_cuda needs CUDA tensors, got {cand_pos.device}")
+    strides = (ctypes.c_longlong * 12)(
+        *check_window_args(cand_pos, cand_norm, cand_rad, cand_valid, r)
+    )
     from cofusion_tpu_torch.ops import _build
 
     lib = _build.load().lib
-    geo = pack_geometry(cand_pos, cand_norm, cand_rad, cand_valid)
-    best_z = torch.empty((B, H, W), dtype=torch.float32, device=geo.device)
-    best_tap = torch.empty((B, H, W), dtype=torch.int32, device=geo.device)
+    B, H, W = cand_valid.shape
+    dev = cand_pos.device
+    best_z = torch.empty((B, H, W), dtype=torch.float32, device=dev)
+    best_tap = torch.empty((B, H, W), dtype=torch.int32, device=dev)
     fx, fy, cx, cy = (float(c) for c in cam_tup)
-    with torch.cuda.device(geo.device):
-        stream = torch.cuda.current_stream(geo.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cofusion_splat_window_f32(
-            geo.data_ptr(), best_z.data_ptr(), best_tap.data_ptr(),
+            cand_pos.data_ptr(), cand_norm.data_ptr(), cand_rad.data_ptr(),
+            cand_valid.data_ptr(), strides, best_z.data_ptr(), best_tap.data_ptr(),
             B, H, W, int(r), fx, fy, cx, cy, stream,
         )
     _build.check_launch("cofusion_splat_window_f32", err)

@@ -262,8 +262,9 @@ def splat_from_imap(
             thr = thr.reshape(B, 1, 1)
         cand_valid = cand_valid & (vert_conf[..., 3] >= thr)
 
+    # the index map's views go to the kernel as they are (one launch)
     best_z, best_tap = cuda_splat.splat_window(
-        vert_conf[..., :3], normal_rad[..., :3], normal_rad[..., 3].contiguous(),
+        vert_conf[..., :3], normal_rad[..., :3], normal_rad[..., 3],
         cand_valid, r, (cam.fx, cam.fy, cam.cx, cam.cy),
     )
 

@@ -1,8 +1,8 @@
 """The port stands without JAX: no module of cofusion_tpu_torch imports it,
-the package, its engine, its CLI and chip_smoke.py import in a process where
-`import jax` fails, all of them but the CLI (which reads frames with the JAX
-package's numpy readers) import nothing of the JAX package either, and on
-CPU tensors the kernel dispatchers never reach the CUDA kernel loader."""
+the package, its engine, its CLI, its readers and chip_smoke.py import in a
+process where `import jax` fails and import nothing of the JAX package
+either, and on CPU tensors the kernel dispatchers never reach the CUDA
+kernel loader."""
 
 import os
 import pathlib
@@ -38,10 +38,10 @@ def test_no_source_file_imports_jax():
     "module",
     ["cofusion_tpu_torch", "cofusion_tpu_torch.engine", "cofusion_tpu_torch.cli",
      "cofusion_tpu_torch.convert", "cofusion_tpu_torch.utils.export",
-     "cofusion_tpu_torch.io.synthetic", "chip_smoke"],
+     "cofusion_tpu_torch.io.synthetic", "cofusion_tpu_torch.io.readers", "chip_smoke"],
 )
 def test_imports_with_jax_blocked(module):
-    banned = ("jax",) if module == "cofusion_tpu_torch.cli" else ("jax", "cofusion_tpu")
+    banned = ("jax", "cofusion_tpu")
     code = (
         "import sys; sys.modules['jax'] = None\n"
         f"import importlib; importlib.import_module({module!r})\n"

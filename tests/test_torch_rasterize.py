@@ -120,6 +120,69 @@ def test_splat_window_cuda_rejects_cpu_tensors():
         )
 
 
+def _imap_views(B=2, H=6, W=8):
+    """What splat_from_imap hands the kernel: views of (B, H, W, 4) maps."""
+    vert_conf = torch.zeros((B, H, W, 4))
+    normal_rad = torch.zeros((B, H, W, 4))
+    valid = torch.ones((B, H, W), dtype=torch.bool)
+    return [vert_conf[..., :3], normal_rad[..., :3], normal_rad[..., 3], valid]
+
+
+def test_check_window_args_takes_index_map_views():
+    B, H, W = 2, 6, 8
+    strides = cuda_splat.check_window_args(*_imap_views(B, H, W), 3)
+    assert strides == (H * W * 4, W * 4, 4) * 3 + (H * W, W, 1)
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "device", "channel_stride", "radius"])
+def test_check_window_args_rejects(case):
+    args, r = _imap_views(), 3
+    if case == "dtype":
+        args[2] = args[2].to(torch.float64)
+    elif case == "shape":
+        args[1] = args[1][:, :, :-1]
+    elif case == "device":
+        args[1] = torch.empty(args[1].shape, device="meta")
+    elif case == "channel_stride":
+        args[0] = torch.zeros((2, 3, 6, 8)).permute(0, 2, 3, 1)
+    else:
+        r = -1
+    with pytest.raises(ValueError):
+        cuda_splat.check_window_args(*args, r)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_splat_from_imap_passes_views_the_kernel_takes(batched, monkeypatch):
+    """The call site hands over the index map's views uncopied, and
+    check_window_args accepts them."""
+    cam = tcfg.CameraConfig(width=16, height=12, fx=15.0, fy=15.0, cx=8.0, cy=6.0)
+    cfg = tcfg.CoFusionConfig(camera=cam, max_models=1)
+    rng = np.random.default_rng(2)
+    lead = (2,) if batched else ()
+    z = rng.uniform(1.0, 2.0, lead + (12, 16)).astype(np.float32)
+    zero = np.zeros_like(z)
+    imap = trz.IndexMap(
+        index=torch.zeros(lead + (12, 16), dtype=torch.int32),
+        vert_conf=torch.from_numpy(np.stack([zero, zero, z, zero + 1], -1)),
+        normal_rad=torch.from_numpy(np.stack([zero, zero, zero - 1, zero + 0.05], -1)),
+        color_time=torch.zeros(lead + (12, 16, 4)),
+        last_time=torch.zeros(lead + (12, 16)),
+        valid=torch.from_numpy(rng.random(lead + (12, 16)) < 0.8),
+    )
+    seen = []
+
+    def window(pos, norm, rad, valid, r, cam_tup):
+        seen.append(cuda_splat.check_window_args(pos, norm, rad, valid, r))
+        assert pos.data_ptr() == imap.vert_conf.data_ptr()
+        assert rad.data_ptr() == imap.normal_rad.data_ptr() + 3 * 4
+        return cuda_splat.splat_window_plain(pos, norm, rad, valid, r, cam_tup)
+
+    monkeypatch.setattr(cuda_splat, "splat_window", window)
+    out = trz.splat_from_imap(imap, cam, cfg, conf_threshold=0.5)
+    assert len(seen) == 1 and seen[0][2] == 4 and seen[0][8] == 4
+    assert out.valid.any()
+
+
 @pytest.fixture(scope="module")
 def scene(small_cam):
     """A JAX-initialised map of frame 0 and the pose of frame 3, converted to
