@@ -3,20 +3,22 @@
 
     python3 chip_smoke.py [--baseline DIR]
 
-Drives the port's main path — the `-static` frame at 640x480 with the CLI's
-default capacity (2^20 surfels, 2^19 active) — through `CoFusion.process_frame`,
-after building every hand-written kernel from csrc/ and holding each against
-its plain PyTorch version on the card.  Phases (each prints one line of
-findings and raises on failure; nothing is caught, nothing falls back to the
-CPU):
+Drives the port's two paths through `CoFusion.process_frame`, after building
+every hand-written kernel from csrc/ and holding each against its plain
+PyTorch version on the card: the `-static` frame at 640x480 with the CLI's
+default capacity (2^20 surfels, 2^19 active), and the multi-model path at
+the JAX package's bench workload (640x480, 4 model slots, 2^22 surfels a
+slot, CRF motion segmentation of 3 moving boxes, bench.py:60-99,124-127).
+Phases (each prints one line of findings and raises on failure; nothing is
+caught, nothing falls back to the CPU):
 
   1. device       CUDA required; nvidia-smi name/power limit, torch/CUDA versions
   2. build        nvcc build of csrc/*.cu, one nvcc per file, all at once
                   (seconds, ptxas register/smem lines)
-  3. kernels      kernel vs plain version, bit for bit, at the main path's
-                  shapes and at edge shapes (odd sizes, radii 0/1/8, no valid
-                  candidate, extreme splat operands, inf/NaN depth); at the
-                  main path's shape the
+  3. kernels      kernel vs plain version, bit for bit, at the main paths'
+                  shapes (splat at B = 1 and B = 4) and at edge shapes (odd
+                  sizes, radii 0/1/8, no valid candidate, extreme splat
+                  operands, inf/NaN depth); at the main paths' shapes the
                   kernel's device ms per launch (torch.profiler over 100
                   launches), the wrapper's wall ms per call (host clock, one
                   synchronise), the plain version's ms per call, and the
@@ -24,9 +26,10 @@ CPU):
                   peak rate); with --baseline DIR, the same device times of
                   the kernels built from the sources in DIR (an earlier
                   csrc/), for a before/after within one run
-  4. main path    30-frame synthetic orbit at 640x480; frames 3-30 run under
-                  torch.cuda.set_sync_debug_mode("error"); launch counters,
-                  ATE, surfel count, first-frame ms, peak memory
+  4. main path    30-frame synthetic orbit at 640x480, `-static`; frames
+                  3-30 run under torch.cuda.set_sync_debug_mode("error");
+                  launch counters, ATE, surfel count, first-frame ms, peak
+                  memory
   5. timing       the same 30 frames again on a new engine, without the sync
                   check: frames 3-30 timed as one window (host enqueue time
                   and synchronised wall time per frame); poses and map
@@ -34,13 +37,43 @@ CPU):
                   frames under torch.profiler: kernel launches and device
                   busy ms per frame, and the device's idle share
   6. parity       12-frame 160x128 orbit through the port on the CPU (plain
-                  versions) and on the card (kernels): poses within
-                  1e-5 + 2e-6*step, surfel counts equal
+                  versions) and on the card (kernels), held as phase 9
+                  holds its runs
+  7. multi CRF    the bench workload: make_multi_object_frames(cam, 12)
+                  played for 40 frames through the CRF path, frames 3-40
+                  under the sync check; both launch counters equal to the
+                  frame count; spawns, lifecycle events and active slots:
+                  an object slot active at the end and at least 10 frames
+                  after the first spawn; per-object IoU against the
+                  renderer's masks on the last 2 frames (reported, not
+                  gated: ROADMAP C1); finite poses, peak memory,
+                  first-frame ms; then phase 5's rerun (bit for bit: poses,
+                  maps, masks) with the frames after the first spawn as the
+                  timing window, and the 3-frame profile; and the device ms
+                  of one object slot's fuse/clean, which an idle slot pays
+                  as well (the idle-slot select)
+  8. GT masks     12 frames of the same scene with its object masks
+                  (spawn offset 2): the 3 objects spawn at the frames the
+                  host mirror of the spawn cooldown predicts; finite object
+                  pose logs
+  9. multi parity CPU against card at 160x128, max_models=3: the GT-mask
+                  sequence of tests/test_multimodel.py and the teleport
+                  scenario of tests/test_crf_engine.py.  On every frame:
+                  the card's step from the CPU run's state within 1e-5 of
+                  the CPU's, counts, active flags and mask equal; camera
+                  poses within 1e-5 + 2e-6*step and active flags equal;
+                  all poses within that bar plus the CPU's own response to
+                  the card's state (the CPU's step from it), counts and
+                  masks equal wherever that step keeps the CPU run's
+                  (ROADMAP C8); on the card the teleported object spawns
+                  with settled IoU > 0.6
 
 The last stdout line is {"ok": true, "device": {...}}; before it, a
-{"kernels": [...]} line and the nvidia-smi name/power-limit line.  Exits
-non-zero without a result when CUDA is unavailable or any phase fails.
-Imports only the port (cofusion_tpu_torch), which imports nothing of JAX.
+{"kernels": [...]} line (`launches` from the multi-model path's run,
+`launches_static` from the static one's) and the nvidia-smi
+name/power-limit line.  Exits non-zero without a result when CUDA is
+unavailable or any phase fails.  Imports only the port (cofusion_tpu_torch),
+which imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -347,7 +380,10 @@ def phase_kernels(dev, depth_frame, baseline_csrc=None):
                 lambda: cuda_splat.splat_window_plain(*args), "splat_window_fused_kernel",
                 _splat_bound(args),
                 (lambda: base[1](geo, r, args[5]), "splat_window_kernel") if base else None)
-    results["splat_window"] = dict(max_abs_err=splat_err, **timed[(1, 480, 640)], library_ms=None)
+    # the multi-model path's shape (4 slots) in the JSON line; the static
+    # path's (B = 1) beside it
+    results["splat_window"] = dict(max_abs_err=splat_err, **timed[(4, 480, 640)], library_ms=None,
+                                   static_shape_ms=timed[(1, 480, 640)]["ms"])
     return results
 
 
@@ -414,18 +450,20 @@ def phase_main_path(dev, frames, gt):
     return launches, eng
 
 
-def phase_timing(dev, frames, ref_eng):
-    """Phase 4's frames on a new engine with no sync check and no per-frame
-    synchronize: frames 3..N are one timed window.  The rerun must equal
-    phase 4's run bit for bit."""
+def phase_timing(make_engine, frames, ref_eng, ref_masks=None, tag="timing", start=2):
+    """The frames of a main-path phase on a new engine with no sync check
+    and no per-frame synchronize: frames start+1..N are one timed window.
+    The rerun must equal the reference run bit for bit (poses, both map
+    tiers of every slot, and the drained masks when `ref_masks` is given).
+    Returns (steady ms per frame, device busy ms per frame, the engine)."""
     import numpy as np
     import torch
 
-    eng = _engine(dev)
-    eng.process_frame(frames[0])
-    eng.process_frame(frames[1])
+    eng = make_engine()
+    for f in frames[:start]:
+        eng.process_frame(f)
     torch.cuda.synchronize()
-    window = frames[2:]
+    window = frames[start:]
     enqueue_s = 0.0
     t0 = time.perf_counter()
     for f in window:
@@ -434,21 +472,30 @@ def phase_timing(dev, frames, ref_eng):
         enqueue_s += time.perf_counter() - t
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    _phase("timing", frames=f"3-{len(frames)}",
-           steady_ms_per_frame=f"{wall_s * 1e3 / len(window):.3f}",
+    steady_ms = wall_s * 1e3 / len(window)
+    _phase(tag, frames=f"{start + 1}-{len(frames)}", steady_ms_per_frame=f"{steady_ms:.3f}",
            host_enqueue_ms_per_frame=f"{enqueue_s * 1e3 / len(window):.3f}",
            method="one synchronised window, no sync check")
 
     for i, (a, b) in enumerate(zip(eng.pose_log, ref_eng.pose_log)):
         if not np.array_equal(a[1], b[1]):
-            raise RuntimeError(f"rerun pose {i} differs: max {np.abs(a[1] - b[1]).max()}")
+            raise RuntimeError(f"{tag} rerun pose {i} differs: max {np.abs(a[1] - b[1]).max()}")
     st, ref = eng.state.models, ref_eng.state.models
     for tier in ("store", "stable"):
         for name, a, b in zip(st.store._fields, getattr(st, tier), getattr(ref, tier)):
             if not torch.equal(a, b):
-                raise RuntimeError(f"rerun map field {tier}.{name} differs")
-    _phase("determinism", frames=len(frames), poses="bit-identical", store="bit-identical",
-           active_count=int(st.store.count[0]), stable_count=int(st.stable.count[0]))
+                raise RuntimeError(f"{tag} rerun map field {tier}.{name} differs")
+    if not torch.equal(st.active, ref.active):
+        raise RuntimeError(f"{tag} rerun active flags differ")
+    if ref_masks is not None:
+        masks = dict(eng.drain_segmentation(flush=True))
+        if masks.keys() != ref_masks.keys() or any(
+            not np.array_equal(masks[t], ref_masks[t]) for t in masks
+        ):
+            raise RuntimeError(f"{tag} rerun segmentation masks differ")
+    _phase("determinism", path=tag, frames=len(frames), poses="bit-identical", store="bit-identical",
+           masks="bit-identical" if ref_masks is not None else "not compared",
+           active_count=st.store.count.tolist(), stable_count=st.stable.count.tolist())
 
     # where the time goes: launches and device busy time over 3 more frames
     # (the last frames fed again); idle share against the unprofiled window
@@ -465,46 +512,419 @@ def phase_timing(dev, frames, ref_eng):
         e.self_device_time_total for e in events
         if e.device_type == torch.autograd.DeviceType.CUDA
     ) / 1e3 / n
-    steady_ms = wall_s * 1e3 / len(window)
-    _phase("profile", frames=n, kernel_launches_per_frame=launches / n,
+    _phase("profile", path=tag, frames=n, kernel_launches_per_frame=launches / n,
            device_busy_ms_per_frame=f"{busy_ms:.3f}" if busy_ms else "not measured",
            device_idle_share=f"{1.0 - busy_ms / steady_ms:.3f}" if busy_ms else "not measured")
+    return steady_ms, busy_ms, eng
 
 
-def _run_small(device, frames):
+# --- the multi-model path (bench.py:88-99,124-127)
+MULTI_FRAMES = 40  # bench.py's 12-frame ping-pong cycle, replayed
+MULTI_FUSION = dict(depth_cutoff=4.5, confidence_object=0.01, confidence_global=1.5,
+                    model_spawn_offset=4, model_deactivate_count=3)
+
+
+def _multi_engine(dev, **fusion):
     from cofusion_tpu_torch.config import CameraConfig, CoFusionConfig, FusionParams
     from cofusion_tpu_torch.engine import CoFusion
 
-    cam = CameraConfig(width=160, height=128, fx=132.0, fy=132.0, cx=80.0, cy=64.0)
-    cfg = CoFusionConfig(camera=cam, max_models=1, max_surfels=1 << 17)
-    eng = CoFusion(cfg, fusion_params=FusionParams(depth_cutoff=4.5), device=device)
-    counts = []
+    cfg = CoFusionConfig(camera=CameraConfig(), max_models=4, max_surfels=1 << 22)
+    return CoFusion(cfg, fusion_params=FusionParams(**dict(MULTI_FUSION, **fusion)),
+                    enable_multi_model=True, device=dev)
+
+
+def _listen(eng):
+    """Lifecycle events as (frames seen when the event fired, kind, slot)."""
+    events = []
+    eng.add_new_model_listener(lambda s: events.append((len(eng._timestamps), "new", s)))
+    eng.add_inactive_model_listener(lambda s: events.append((len(eng._timestamps), "inactive", s)))
+    return events
+
+
+def _iou(a, b) -> float:
+    import numpy as np
+
+    union = float(np.logical_or(a, b).sum())
+    return float(np.logical_and(a, b).sum()) / union if union else 0.0
+
+
+# the bench workload's run must spawn, and its timing window (the frames
+# after the first spawn) must hold at least this many frames
+MIN_OBJECT_FRAMES = 10
+
+
+def phase_multi_crf(dev, frames, gt_ids):
+    """The bench workload through the CRF path: frames 3..N under the sync
+    check, both kernels once per frame, lifecycle and segmentation read
+    back after the run.  An object slot must be active at the end, and the
+    frames after the first spawn (found from the slots' ages) must number
+    at least MIN_OBJECT_FRAMES; returns that spawn's frame index too."""
+    import numpy as np
+    import torch
+
+    from cofusion_tpu_torch.ops import cuda_splat, cuda_stencil
+
+    eng = _multi_engine(dev)
+    events = _listen(eng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_stencil.bilateral_filter_cuda.launches = 0
+    cuda_splat.splat_window_cuda.launches = 0
+    t0 = time.perf_counter()
+    eng.process_frame(frames[0])
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    eng.process_frame(frames[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for f in frames[2:]:
+            eng.process_frame(f)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    checked_ms = (time.perf_counter() - t0) * 1e3 / len(frames[2:])
+    launches = {
+        "bilateral_filter": cuda_stencil.bilateral_filter_cuda.launches,
+        "splat_window": cuda_splat.splat_window_cuda.launches,
+    }
+    peak = torch.cuda.max_memory_allocated()
+    eng.flush_lifecycle()
+    masks = dict(eng.drain_segmentation(flush=True))
+    log = eng.pose_log
+    finite = all(np.isfinite(p).all() for _, p in log)
+    active = eng.stats()["active"]
+    n = len(frames)
+    # a slot's age counts the frames it has been active since its spawn
+    age = eng.state.models.age.cpu().numpy()
+    spawned_at = {m: n - int(age[m]) for m in range(1, len(active)) if active[m]}
+    first_spawn = min(spawned_at.values(), default=n)
+    # per object: the best IoU of any object slot against the renderer's
+    # mask of that object, on the last 2 frames (frame i -> tick i + 1)
+    ious = {
+        i: [round(max(_iou(masks[i + 1] == s, gt_ids[i % len(gt_ids)] == obj) for s in range(1, 4)), 4)
+            for obj in (1, 2, 3)]
+        for i in (n - 2, n - 1)
+    }
+    _phase("multi_crf", frames=n, launches=launches, events=events,
+           active_at_end=active.astype(int).tolist(), spawn_frame_of_active_slot=spawned_at,
+           object_slot_frames=int(age[1:].sum()), frames_after_first_spawn=n - 1 - first_spawn, surfels=eng.stats()["surfel_counts"].tolist(),
+           labels_last=sorted(np.unique(masks[n]).tolist()), iou_per_object_last2=ious,
+           iou_gate="reported only (ROADMAP C1)", first_frame_ms=f"{first_ms:.3f}",
+           max_memory_allocated_bytes=peak, sync_debug=f"error on frames 3-{n}",
+           checked_ms_per_frame=f"{checked_ms:.3f}")
+    if launches["bilateral_filter"] != n or launches["splat_window"] != n:
+        raise RuntimeError(f"multi-model path: kernel launches {launches}, expected {n} each")
+    if not finite:
+        raise RuntimeError("non-finite pose in the multi-model path")
+    if len(masks) != n - 1:
+        raise RuntimeError(f"drained {len(masks)} masks for {n - 1} tracked frames")
+    if not spawned_at or n - 1 - first_spawn < MIN_OBJECT_FRAMES:
+        raise RuntimeError(f"bench workload: active object slots {spawned_at} leave "
+                           f"{n - 1 - first_spawn} frames after the first spawn (< {MIN_OBJECT_FRAMES})")
+    return launches, eng, masks, first_spawn
+
+
+def phase_idle_slot(eng, steady_ms):
+    """What the device-side select costs: an object slot computes its whole
+    fuse/clean whether it fuses or not.  Device ms of `_fuse_clean_all`
+    over the engine's 4 slots against slot 0 alone (CUDA events, 10 calls
+    each on copies of the final state); the difference over 3 is one object
+    slot's share, paid per idle slot per frame."""
+    import torch
+
+    from cofusion_tpu_torch.engine import _fuse_clean_all
+
+    st, cfg, cam = eng.state, eng.cfg, eng.cam
+    models = st.models
+    depth = st.prev_filtered
+    fp = dict(eng._fparams, weight_multiplier=1.0)
+
+    def run(M):
+        stores = type(models.store)(*(a[:M].clone() for a in models.store))
+        stables = type(models.stable)(*(a[:M].clone() for a in models.stable))
+        args = (models.pose[:M], torch.ones(M, device=depth.device), models.model_id[:M],
+                models.conf_threshold[:M], models.active[:M] | True, models.max_depth[:M])
+        return lambda: _fuse_clean_all(stores, stables, *args, depth, st.prev_filtered, st.prev_rgb,
+                                       st.prev_mask if M > 1 else None, cam, cfg, st.tick, fp)
+
+    times = {}
+    for M in (cfg.max_models, 1):
+        fn = run(M)
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times[M] = start.elapsed_time(end) / 10
+    slot_ms = (times[cfg.max_models] - times[1]) / (cfg.max_models - 1)
+    _phase("idle_slot", fuse_clean_ms_4_slots=f"{times[cfg.max_models]:.3f}",
+           fuse_clean_ms_slot0=f"{times[1]:.3f}", per_object_slot_ms=f"{slot_ms:.3f}",
+           share_of_steady_frame=f"{slot_ms / steady_ms:.3f}",
+           method="CUDA events over 10 calls; an idle slot computes and selects back")
+
+
+def _predicted_spawns(masks, offset: int, n_slots: int):
+    """The host mirror's spawns from the object ids alone: one new id per
+    frame, the smallest unmapped visible one, into the lowest free slot,
+    once `offset` frames have passed since the last spawn."""
+    import numpy as np
+
+    mapped, free, cooldown, out = set(), list(range(1, n_slots)), 0, []
+    for i, m in enumerate(masks[1:], start=1):
+        new = [v for v in np.unique(m).tolist() if v and v not in mapped]
+        if new and free and cooldown >= offset:
+            mapped.add(new[0])
+            out.append((i, "new", free.pop(0)))
+            cooldown = 0
+        else:
+            cooldown += 1
+    return out
+
+
+def phase_gt_masks(dev, frames):
+    """The same scene with its object ids as masks (the `-maskdir` path):
+    the 3 objects spawn at the predicted frames, and every object's pose
+    log is finite."""
+    import numpy as np
+
+    offset = 2
+    eng = _multi_engine(dev, model_spawn_offset=offset)
+    events = _listen(eng)
     for f in frames:
         eng.process_frame(f)
-        counts.append(int(eng.stats()["surfel_counts"][0]))
-    return [p[1][0] for p in eng.pose_log], counts
+    # GT-mask events fire inside the frame's call: (frame index, kind, slot)
+    got = events
+    want = _predicted_spawns([f["mask"] for f in frames], offset, eng.cfg.max_models)
+    active = eng.stats()["active"]
+    logs = {m: eng.pose_log_for(m) for m in range(4) if eng.model_ever_active(m)}
+    finite = all(np.isfinite(p[m]).all() for m, log in logs.items() for _, p in log)
+    _phase("gt_masks", frames=len(frames), spawn_offset=offset, events=got, predicted=want,
+           active_at_end=active.astype(int).tolist(), surfels=eng.stats()["surfel_counts"].tolist(),
+           pose_logs_finite=finite)
+    if got != want or len(want) != 3:
+        raise RuntimeError(f"GT-mask spawns {got}, predicted {want}")
+    if not (finite and active.all()):
+        raise RuntimeError(f"GT-mask path: finite pose logs {finite}, active {active}")
+
+
+def _teleport_frames(cam):
+    """tests/test_crf_engine.py's scenario: a box warms the map for 6
+    frames, then jumps; with the renderer's object masks."""
+    import numpy as np
+
+    from cofusion_tpu_torch.io.synthetic import SyntheticScene, camera_trajectory, object_trajectory
+
+    scene = SyntheticScene()
+    h = 0.28
+    scene.add_moving_box(model_id=1, lo=[-h, -h, -h], hi=[h, h, h])
+    base = object_trajectory(1, translation=(0, 0, 0), center=(0.14, -0.32, 1.82),
+                             tilt=(0.35, 0.5, 0.0))[0]
+    jump = np.eye(4)
+    jump[:3, 3] = (0.40, 0.18, 0.0)
+    cam_poses = camera_trajectory(10, kind="orbit", scale=0.4)
+    frames, gt = [], []
+    for i in range(10):
+        rgb, depth, mask = scene.render(cam, cam_poses[i], object_poses={1: base if i < 6 else jump @ base})
+        frames.append({"rgb": rgb, "depth": depth, "mask": None, "timestamp": i})
+        gt.append(mask)
+    return frames, gt
+
+
+def _tree_to(tree, device):
+    """A copy of an engine state (NamedTuples of tensors, host ints) on `device`."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device, copy=True)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_to(a, device) for a in tree))
+    return tree
+
+
+def _run_small(device, frames, kind: str):
+    """A 160x128 run on `device`: "static" (max_models=1, 2^17 surfels),
+    "gt" (tests/test_multimodel.py's configuration) or "crf"
+    (tests/test_crf_engine.py's).  Returns per-frame (poses, active,
+    counts), the drained masks, and every step's input (state copy, frame
+    tensors, run-time scalars, static options) plus the final state, so a
+    step can be replayed on another device."""
+    import cofusion_tpu_torch.engine as engine_mod
+    from cofusion_tpu_torch.config import CameraConfig, CoFusionConfig, FusionParams
+
+    cam = CameraConfig(width=160, height=128, fx=132.0, fy=132.0, cx=80.0, cy=64.0)
+    if kind == "static":
+        cfg = CoFusionConfig(camera=cam, max_models=1, max_surfels=1 << 17)
+        fusion = dict(depth_cutoff=4.5)
+    else:
+        cfg = CoFusionConfig(camera=cam, max_models=3, max_surfels=1 << 16,
+                             superpixel_size=6 if kind == "crf" else 16)
+        fusion = MULTI_FUSION if kind == "crf" else dict(
+            depth_cutoff=4.5, confidence_object=0.01, model_spawn_offset=0)
+    eng = engine_mod.CoFusion(cfg, fusion_params=FusionParams(**fusion),
+                              enable_multi_model=kind != "static", device=device)
+    steps, step = [], engine_mod._step
+
+    def recording_step(state, *args, **kw):
+        steps.append((_tree_to(state, device), args, kw))
+        return step(state, *args, **kw)
+
+    log = []
+    engine_mod._step = recording_step
+    try:
+        for f in frames:
+            eng.process_frame(f)
+            st = eng.stats()
+            log.append((st["poses"], st["active"], st["surfel_counts"]))
+    finally:
+        engine_mod._step = step
+    return log, dict(eng.drain_segmentation(flush=True)), steps, _tree_to(eng.state, device)
+
+
+def _replay(steps, final, k, device):
+    """Step k (frame k + 1) replayed from its recorded input state on
+    `device`: (poses, counts, active, mask, condition number of each slot's
+    final Gauss-Newton system) of the replay, and (poses, counts, active,
+    mask) of the recorded run's next state."""
+    import numpy as np
+    import torch
+
+    from cofusion_tpu_torch.engine import _step
+    from cofusion_tpu_torch.ops import odometry as od
+
+    state, args, kw = steps[k]
+    args = tuple(_tree_to(a, device) if isinstance(a, torch.Tensor) else a for a in args)
+    track, systems = od.track_models, []
+
+    def tracked(*a, **kw_):
+        res = track(*a, **kw_)
+        systems.append(res.A)
+        return res
+
+    od.track_models = tracked
+    try:
+        new, _ = _step(_tree_to(state, device), *args, **kw)
+    finally:
+        od.track_models = track
+    ref = steps[k + 1][0] if k + 1 < len(steps) else final
+    # a slot without a solved system keeps its pose: condition 1
+    kappa = np.nan_to_num(np.linalg.cond(systems[0].double().cpu().numpy()), nan=1.0, posinf=1.0)
+
+    def out(st):
+        m = st.models
+        counts = m.store.count + torch.clamp(m.stable.count, max=m.stable.capacity)
+        return (m.pose.cpu().numpy(), counts.cpu().numpy(), m.active.cpu().numpy(),
+                st.prev_mask.cpu().numpy())
+
+    return out(new) + (kappa,), out(ref)
+
+
+# The pose bars (1e-5 a step, + 2e-6 a frame over a run) are derived in
+# __graft_entry__.py:162-176 for fp32 summation order through a 6x6 GN system
+# of condition ~1e2; a slot whose system is worse conditioned (a small or
+# freshly spawned object: 1e3-3e4) gets them scaled by its condition / 1e2,
+# taken from the CPU's own step (ROADMAP C8)
+STEP_BAR = 1e-5
+KAPPA_REF = 1e2
+
+
+def _parity(name, frames, kind):
+    """CPU against card on one 160x128 run.  Every step of the CPU run is
+    replayed on the card from the CPU's state (each slot's pose within
+    STEP_BAR scaled by its system's condition, counts, active flags and the
+    mask exact), and every step of the card's run on the CPU from the
+    card's state, which gives the CPU's own response to the card's state.
+    The whole runs must then agree within the bar plus that response:
+    camera poses within the bar, each slot's pose within the scaled bar
+    plus the response, and counts and masks on every frame where the CPU's
+    replay keeps the CPU run's.  Returns the phase line's fields and the
+    card's run."""
+    import numpy as np
+
+    cpu, cpu_masks, cpu_steps, cpu_final = _run_small("cpu", frames, kind)
+    card, card_masks, card_steps, card_final = _run_small("cuda", frames, kind)
+    n = len(frames)
+    flip, worst_cam, worst_step, gap, scaled, kmax = n, 0.0, 0.0, None, [], None
+    for step in range(1, n):
+        bar = 1e-5 + 2e-6 * step
+        (pc, ac, cc), (pg, ag, cg) = cpu[step], card[step]
+        # the CPU's own step (its systems' condition scales the bars), and one
+        # card step from the CPU's state against it
+        (_, _, _, _, kappa), _ = _replay(cpu_steps, cpu_final, step - 1, "cpu")
+        scale = np.maximum(1.0, kappa / KAPPA_REF)
+        kmax = kappa if kmax is None else np.maximum(kmax, kappa)
+        (rp, rc, ra, rm, _), (qp, qc, qa, qm) = _replay(cpu_steps, cpu_final, step - 1, "cuda")
+        d_step = np.abs(rp - qp).max(axis=(1, 2))
+        worst_step = max(worst_step, float(d_step.max()))
+        for m in np.flatnonzero(scale > 1.0):
+            scaled.append(dict(frame=step, slot=int(m), condition=float(kappa[m]),
+                               step_pose_diff=float(d_step[m]), step_bar=STEP_BAR * float(scale[m])))
+        if not ((d_step <= STEP_BAR * scale).all() and np.array_equal(rc, qc) and np.array_equal(ra, qa)
+                and np.array_equal(rm, qm)):
+            raise RuntimeError(f"{name} parity: the card's step from the CPU state at frame {step}: "
+                               f"pose |d| {d_step} (bars {STEP_BAR * scale}), counts {rc} vs {qc}, "
+                               f"active {ra} vs {qa}, mask equal {np.array_equal(rm, qm)}")
+        # the CPU's own response to the card's state
+        (op, oc, _, om, _), _ = _replay(card_steps, card_final, step - 1, "cpu")
+        response = np.abs(op - pc).max(axis=(1, 2))
+        keeps = np.array_equal(oc, cc) and np.array_equal(om, cpu_masks[step + 1])
+        d_cam = float(np.abs(pc[0] - pg[0]).max())
+        worst_cam = max(worst_cam, d_cam)
+        d = np.abs(pc - pg).max(axis=(1, 2))
+        same = np.array_equal(cc, cg) and np.array_equal(cpu_masks[step + 1], card_masks[step + 1])
+        if d_cam > bar or not np.array_equal(ac, ag) or (d > bar * scale + response).any() or (
+                keeps and not same):
+            raise RuntimeError(f"{name} parity: frame {step} camera {d_cam}, poses {d} (bars "
+                               f"{bar * scale} + the CPU's response {response}), active {ac} vs {ag}, "
+                               f"counts {cc} vs {cg}, masks equal {same}, CPU replay keeps its "
+                               f"counts/mask {keeps}")
+        if flip == n and ((d > bar).any() or not same):
+            flip, gap = step, dict(pose_diff=d.tolist(), cpu_counts=cc.tolist(), card_counts=cg.tolist(),
+                                   masks_equal=same, cpu_response=response.tolist(),
+                                   cpu_replay_counts=oc.tolist())
+    line = dict(path=name, frames=n, camera="160x128", max_camera_pose_diff=worst_cam,
+                max_step_pose_diff=worst_step,
+                bar="1e-5+2e-6*step; one step 1e-5; a slot's x max(1, condition/1e2)",
+                max_condition_per_slot=[round(float(k), 1) for k in kmax], scaled_bars=scaled,
+                first_frame_off_bar=flip, there=gap,
+                cpu_counts=cpu[-1][2].tolist(), card_counts=card[-1][2].tolist())
+    return line, card, card_masks
 
 
 def phase_parity():
+    from cofusion_tpu_torch.config import CameraConfig
+    from cofusion_tpu_torch.io.synthetic import make_sequence
+
+    cam = CameraConfig(width=160, height=128, fx=132.0, fy=132.0, cx=80.0, cy=64.0)
+    frames, _, _ = make_sequence(cam, 12)
+    line, _, _ = _parity("static", frames, "static")
+    _phase("parity", **line)
+
+
+def phase_parity_multi():
     import numpy as np
 
     from cofusion_tpu_torch.config import CameraConfig
     from cofusion_tpu_torch.io.synthetic import make_sequence
 
     cam = CameraConfig(width=160, height=128, fx=132.0, fy=132.0, cx=80.0, cy=64.0)
-    frames, _ = make_sequence(cam, 12)
-    cpu_poses, cpu_counts = _run_small("cpu", frames)
-    gpu_poses, gpu_counts = _run_small("cuda", frames)
-    worst = 0.0
-    for step, (a, b) in enumerate(zip(cpu_poses, gpu_poses)):
-        d = float(np.abs(a - b).max())
-        worst = max(worst, d)
-        if d > 1e-5 + 2e-6 * step:
-            raise RuntimeError(f"CPU/card pose parity broken at step {step}: {d}")
-    _phase("parity", frames=12, camera="160x128", max_pose_diff=worst,
-           bar="1e-5+2e-6*step", cpu_counts=cpu_counts[-1], card_counts=gpu_counts[-1])
-    if cpu_counts != gpu_counts:
-        raise RuntimeError(f"CPU/card surfel counts differ: {cpu_counts} vs {gpu_counts}")
+    gt_frames, _, _ = make_sequence(cam, 8, kind="orbit", moving_object=True)
+    crf_frames, crf_gt = _teleport_frames(cam)
+    for name, frames, kind in (("gt_masks", gt_frames, "gt"), ("crf_teleport", crf_frames, "crf")):
+        line, card, card_masks = _parity(name, frames, kind)
+        n = len(frames)
+        line["spawn_frame"] = next(i for i, (_, a, _) in enumerate(card) if a[1:].any())
+        if kind == "crf":
+            slot = 1 + int(np.argmax(card[-1][1][1:]))
+            line["card_settled_iou"] = [round(_iou(card_masks[i + 1] == slot, crf_gt[i] == 1), 4)
+                                        for i in (n - 2, n - 1)]
+        _phase("multi_parity", **line)
+        if kind == "crf" and not min(line["card_settled_iou"]) > 0.6:
+            raise RuntimeError(f"teleport IoU on the card {line['card_settled_iou']} <= 0.6")
 
 
 def main(argv=None) -> int:
@@ -520,7 +940,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     from cofusion_tpu_torch.config import CameraConfig
     from cofusion_tpu_torch.device import resolve_device
-    from cofusion_tpu_torch.io.synthetic import make_sequence
+    from cofusion_tpu_torch.io.synthetic import make_multi_object_frames, make_sequence
     from cofusion_tpu_torch.ops import _build
 
     torch.set_num_threads(min(8, os.cpu_count() or 1))
@@ -536,15 +956,32 @@ def main(argv=None) -> int:
         print("  ptxas: " + ln)
 
     t0 = time.perf_counter()
-    frames, gt = make_sequence(CameraConfig(), 30)
+    frames, gt, _ = make_sequence(CameraConfig(), 30)
     _phase("frames", n=len(frames), shape=frames[0]["depth"].shape,
            seconds=f"{time.perf_counter() - t0:.1f}")
 
     kern = phase_kernels(dev, frames[0]["depth"], opts.baseline)
-    launches, eng = phase_main_path(dev, frames, gt)
-    phase_timing(dev, frames, eng)
+    launches_static, eng = phase_main_path(dev, frames, gt)
+    phase_timing(lambda: _engine(dev), frames, eng)
     del eng
     phase_parity()
+
+    t0 = time.perf_counter()
+    cam = CameraConfig()
+    unique = make_multi_object_frames(cam, 12, masks=True)
+    gt_ids = [f["mask"] for f in unique]
+    crf_frames = [dict(unique[i % 12], mask=None, timestamp=i) for i in range(MULTI_FRAMES)]
+    _phase("frames", n=len(crf_frames), unique=len(unique), objects=3,
+           seconds=f"{time.perf_counter() - t0:.1f}")
+    launches, eng, masks, first_spawn = phase_multi_crf(dev, crf_frames, gt_ids)
+    # time the frames after the first spawn: object slots track and fuse
+    steady_ms, _, eng2 = phase_timing(lambda: _multi_engine(dev), crf_frames, eng, masks,
+                                      tag="multi_timing", start=first_spawn + 1)
+    del eng
+    phase_idle_slot(eng2, steady_ms)
+    del eng2
+    phase_gt_masks(dev, unique)
+    phase_parity_multi()
 
     sources = {
         "bilateral_filter": ("cofusion_tpu_torch/csrc/bilateral.cu", "cofusion_tpu/ops/pallas_stencil.py:75"),
@@ -552,7 +989,7 @@ def main(argv=None) -> int:
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **kern[name]}
+         "launches": launches[name], "launches_static": launches_static[name], **kern[name]}
         for name, (src, rep) in sources.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -7,8 +7,10 @@ it imports anything of the JAX package: `config.py`, `io/synthetic.py`,
 `io/readers.py` (.klg logs and image directories) and `utils/stopwatch.py`
 are the port's own, with the reference's names and defaults.
 
-Ported slice: the `-static` (single global model, ElasticFusion mode) frame
-path — bilateral filter (CUDA kernel), tracking, fuse/clean and the window
+Ported: the `-static` (single global model, ElasticFusion mode) frame path
+and the multi-model path (object models segmented by ground-truth masks or by
+the motion-cue CRF, masked batched tracking, the model lifecycle) — bilateral
+filter (CUDA kernel), tracking, segmentation, fuse/clean and the window
 splat (CUDA kernel).  See README.md and ROADMAP.md for what is still to come.
 """
 

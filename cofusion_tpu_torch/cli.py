@@ -1,18 +1,25 @@
-"""Command-line entry point of the port — the `-static` path of
-cofusion_tpu/cli.py (the reference's MainController, headless).
+"""Command-line entry point of the port — cofusion_tpu/cli.py (the reference's
+MainController, headless) for the static and multi-model modes.
 
 Usage:
     python -m cofusion_tpu_torch -l log.klg -static -run -q -ep -em -exportdir out/
-    python -m cofusion_tpu_torch -dir dataset/ -static -d 4.5 -ep -exportdir out/
+    python -m cofusion_tpu_torch -dir dataset/ -maskdir dataset/ -es -ep -em -exportdir out/
+    python -m cofusion_tpu_torch -l log.klg -d 4.5 -es -exportdir out/     # CRF segmentation
 
+Without `-static` the engine runs the multi-model mode with 4 model slots:
+ground-truth masks where the reader has them (`-maskdir`, or Mask####.png
+beside the frames of `-dir`), motion-cue CRF segmentation otherwise.
 Flags are the JAX CLI's, parsed the same way.  Supported: -l, -dir (with
 the reader options -basedir, -cal, -maskdir, -depthdir, -colorprefix,
 -depthprefix, -maskprefix, -indexW, -pngScale, -nm), -static, -d, -t, -ns,
--i, -confG, -run, -q, -s, -e, -ep, -em, -exportdir.  The port adds
-`-device cuda|cpu`: the default is cuda, and the run fails when CUDA is
-absent; `-device cpu` runs the kernels' plain PyTorch versions on the CPU.
-The JAX CLI's other flags raise "not yet ported" with their ROADMAP item.
-Frames are read by the port's numpy readers (`cofusion_tpu_torch/io/readers.py`).
+-i, -confG, -confO, -offset, -keep, -a (accepted, no effect: every slot is
+allocated up front), -crfRGB, -crfDepth, -crfPos, -crfAppearance,
+-crfSmooth, -thNew, -k, -segMinNew, -segMaxNew, -run, -q, -s, -e, -ep, -em,
+-es, -el, -exportdir.  The port adds `-device cuda|cpu`: the default is
+cuda, and the run fails when CUDA is absent; `-device cpu` runs the
+kernels' plain PyTorch versions on the CPU.  The JAX CLI's other flags
+raise "not yet ported" with their ROADMAP item.  Frames are read by the
+port's numpy readers (`cofusion_tpu_torch/io/readers.py`).
 """
 
 from __future__ import annotations
@@ -20,17 +27,17 @@ from __future__ import annotations
 import os
 import sys
 
-from cofusion_tpu_torch.config import CameraConfig, CoFusionConfig, FusionParams, TrackingParams
+import numpy as np
+
+from cofusion_tpu_torch.config import (
+    CameraConfig, CoFusionConfig, FusionParams, SegmentationParams, TrackingParams,
+)
 from cofusion_tpu_torch.io import readers
 from cofusion_tpu_torch.utils import export
 from cofusion_tpu_torch.utils.stopwatch import Stopwatch
 
 # flag -> ROADMAP item of the feature it needs
 NOT_PORTED = {
-    "-confO": "A9", "-offset": "A9", "-keep": "A9", "-a": "A9",
-    "-crfRGB": "A10", "-crfDepth": "A10", "-crfPos": "A10",
-    "-crfAppearance": "A10", "-crfSmooth": "A10", "-thNew": "A10", "-k": "A10",
-    "-segMinNew": "A10", "-segMaxNew": "A10", "-es": "A10", "-el": "A10",
     "-rl": "A12", "-pt": "A12", "-ft": "A12",
     "-cl": "A13", "-ie": "A13", "-ic": "A13", "-cv": "A13",
     "-p": "A14", "-en": "A14", "-ev": "A14", "-checkpoint": "A14", "-resume": "A14",
@@ -90,14 +97,9 @@ def build_from_args(argv: list[str]):
     from cofusion_tpu_torch.engine import CoFusion
 
     p = Parse(argv)
-    if not p.flag("-static"):
-        raise SystemExit(
-            "multi-model mode (no -static) is not yet ported (ROADMAP A9-A10); "
-            "run with -static"
-        )
     for flag, item in NOT_PORTED.items():
         if p.flag(flag):
-            raise SystemExit(f"{flag} is not yet ported (ROADMAP {item}; queue A9-A14)")
+            raise SystemExit(f"{flag} is not yet ported (ROADMAP {item}; queue A12-A14)")
 
     base = p.arg("-basedir", "")
 
@@ -141,9 +143,10 @@ def build_from_args(argv: list[str]):
                 width, height = w2, h2
 
     cam = CameraConfig(width=width, height=height, fx=fx, fy=fy, cx=cx, cy=cy)
+    static = p.flag("-static")
     cfg = CoFusionConfig(
         camera=cam,
-        max_models=1,
+        max_models=1 if static else 4,
         time_delta=p.int_arg("-t", 200),
         max_surfels=p.int_arg("-ns", CoFusionConfig.max_surfels),
     )
@@ -151,16 +154,47 @@ def build_from_args(argv: list[str]):
     fusion = FusionParams(
         depth_cutoff=p.float_arg("-d", 5.0),
         confidence_global=p.float_arg("-confG", 10.0),
+        confidence_object=p.float_arg("-confO", 0.01),
+        model_spawn_offset=p.int_arg("-offset", 22),
     )
-    engine = CoFusion(cfg, tracking=tracking, fusion_params=fusion, device=p.arg("-device", "cuda"))
+    engine = CoFusion(
+        cfg, tracking=tracking, fusion_params=fusion, enable_multi_model=not static,
+        keep_models=p.flag("-keep"), device=p.arg("-device", "cuda"),
+    )
+    # CRF tuning flags (MainController.cpp:222-231); the -crf* values are
+    # standard deviations, the kernel features scale by their inverse
+    sp = SegmentationParams()
+    engine.segmentation = SegmentationParams(
+        scale_rgb=1.0 / p.float_arg("-crfRGB", 1.0 / sp.scale_rgb),
+        scale_depth=1.0 / p.float_arg("-crfDepth", 1.0 / sp.scale_depth),
+        scale_pos=1.0 / p.float_arg("-crfPos", 1.0 / sp.scale_pos),
+        weight_appearance=p.float_arg("-crfAppearance", sp.weight_appearance),
+        weight_smoothness=p.float_arg("-crfSmooth", sp.weight_smoothness),
+        unary_threshold_new=p.float_arg("-thNew", sp.unary_threshold_new),
+        unary_k_error=p.float_arg("-k", sp.unary_k_error),
+        min_rel_size_new=p.float_arg("-segMinNew", sp.min_rel_size_new),
+        max_rel_size_new=p.float_arg("-segMaxNew", sp.max_rel_size_new),
+    )
     options = {
         "start": p.int_arg("-s", 0),
         "end": p.int_arg("-e", -1),
         "export_dir": rel(p.arg("-exportdir")),
         "export_poses": p.flag("-ep"),
         "export_models": p.flag("-em"),
+        "export_segmentation": p.flag("-es"),
+        "export_labels": p.flag("-el"),
     }
     return reader, engine, options
+
+
+def _write_drained_masks(drained: list, opt: dict) -> None:
+    """Write masks pulled from the engine's mask ring ('-es' / '-el'), named
+    as the reference names them (CoFusion.cpp:235-240)."""
+    for tick, mask in drained:
+        if opt["export_segmentation"]:
+            export.export_mask_png(os.path.join(opt["export_dir"], f"Segmentation{tick}.png"), mask)
+        if opt["export_labels"]:
+            export.export_label_png(os.path.join(opt["export_dir"], f"Labels{tick - 1}.png"), mask)
 
 
 def run(argv: list[str] | None = None) -> int:
@@ -171,23 +205,40 @@ def run(argv: list[str] | None = None) -> int:
     if opt["start"]:
         reader.fast_forward(opt["start"])
     end = opt["end"] if opt["end"] >= 0 else reader.num_frames()
+    masks_out = opt["export_dir"] and (opt["export_segmentation"] or opt["export_labels"])
+    if masks_out:
+        os.makedirs(opt["export_dir"], exist_ok=True)
     processed = 0
     # headless: '-run' and '-q' (start immediately, quit at the log's end)
     # are how this loop always behaves
     while reader.has_more() and reader.current_frame < end:
         engine.process_frame(reader.get_next())
         processed += 1
+        if masks_out:
+            # masks come from the device ring in bulk (one copy per ~R frames)
+            _write_drained_masks(engine.drain_segmentation(), opt)
 
     if opt["export_dir"] and processed:
         os.makedirs(opt["export_dir"], exist_ok=True)
+        if masks_out:
+            _write_drained_masks(engine.drain_segmentation(flush=True), opt)
+        models = [m for m in range(engine.cfg.max_models) if m == 0 or engine.model_ever_active(m)]
         if opt["export_poses"]:
-            export.export_poses("", engine.pose_log_for(0), 0, opt["export_dir"])
+            # model 0 = camera (cam->world); objects P_cam * P_obj^-1
+            for m in models:
+                export.export_poses("", engine.pose_log_for(m), m, opt["export_dir"])
         if opt["export_models"]:
-            export.export_ply(
-                os.path.join(opt["export_dir"], "cloud-0.ply"),
-                engine.download_model(0),
-                conf_threshold=float(engine.state.models.conf_threshold[0]),
-            )
+            poses = engine.state.models.pose.cpu().numpy()
+            thresholds = engine.state.models.conf_threshold.cpu().numpy()
+            for m in models:
+                # object clouds in the world frame: P_cam * P_obj^-1
+                # (CoFusion.cpp:695-698); model 0 is world-frame already
+                export.export_ply(
+                    os.path.join(opt["export_dir"], f"cloud-{m}.ply"),
+                    engine.download_model(m),
+                    conf_threshold=float(thresholds[m]),
+                    transform=None if m == 0 else poses[0] @ np.linalg.inv(poses[m]),
+                )
     print(f"Processed {processed} frames.")
     print(sw.report())
     return 0

@@ -394,11 +394,14 @@ def clean_eval(
     time_delta,
     conf_threshold,
     outlier_coeff,
+    mask: torch.Tensor | None = None,
+    mask_id=None,
 ) -> tuple[SurfelStore, torch.Tensor]:
-    """Clean/copy pass predicates (copy_unstable.vert:53-150) of the single
-    (unmasked) model: duplicate suppression, unstable-timeout removal,
-    free-space-violation confidence decay.  Returns (store with decayed
-    confidences, keep mask).  `imap` is the post-fuse index render."""
+    """Clean/copy pass predicates (copy_unstable.vert:53-150): duplicate
+    suppression, unstable-timeout removal, free-space-violation confidence
+    decay and, given the frame's model-id `mask`, the mask-mismatch penalty
+    of model `mask_id`.  Returns (store with decayed confidences, keep
+    mask).  `imap` is the post-fuse index render."""
     H, W = cam.height, cam.width
     n = store.capacity
     dev = depth_input.device
@@ -458,6 +461,8 @@ def clean_eval(
             viol = ok_tap & (d - zl > 0.03) & (d > 0)
             violations = violations + viol.to(torch.int32)
             viol_sum = viol_sum + torch.where(viol, d - zl, 0.0)
+            if dy == 0 and dx == 0:
+                d_centre = d
 
     # Gates rescaled to the 9 distinct texels visited once each (the
     # reference samples 16 taps: count > 8, zCount > 4)
@@ -471,6 +476,15 @@ def clean_eval(
     has_viol = violations > 0
     avg_viol = viol_sum / torch.clamp(violations, min=1).to(torch.float32)
     conf = torch.where(has_viol, store.conf / (1.0 + outlier_coeff * avg_viol), store.conf)
+    if mask is not None:
+        # a violated surfel whose own pixel belongs to another model, at the
+        # observed depth, loses confidence (copy_unstable.vert:143-149)
+        m_val = mask.to(torch.float32).reshape(-1).index_select(0, lin)
+        mism = (
+            has_viol & (m_val != mask_id)
+            & (d_centre > zl - 0.05) & (d_centre < zl + 0.05) & search_ok
+        )
+        conf = torch.where(mism, conf * (0.5 + 0.5 * (1.0 - outlier_coeff / 10.0)), conf)
     return store._replace(conf=conf), keep
 
 

@@ -170,6 +170,44 @@ def _border(Hl: int, Wl: int, device) -> torch.Tensor:
     return (u < Wl - 5) & (v < Hl - 1)
 
 
+def mask_window_bounds(mask_pyrs):
+    """Shared per-level (min, max) of the int mask over the RGB-residual
+    window [y-2, y+1] x [x-2, x+1]: `_window_ok(mask == id)` for any id is
+    then `(min == id) & (max == id)`, so the 15 window shifts run once per
+    level, not once per model.  Out-of-image taps fill with -1, which equals
+    no mask id (`_window_ok`'s fill=False)."""
+    out = []
+    for m in mask_pyrs:
+        mn, mx = m, m
+        for dy in range(-2, 2):
+            for dx in range(-2, 2):
+                if dy == 0 and dx == 0:
+                    continue
+                s = pp._shifted(m, dy, dx, fill=-1)
+                mn = torch.minimum(mn, s)
+                mx = torch.maximum(mx, s)
+        out.append((mn, mx))
+    return out
+
+
+def masked_validity_b(frame, mask_pyrs, mask_bounds, model_ids):
+    """Per-model frame gates of masked tracking (engine.py's multi-model
+    step): ICP validity &= (mask == model id); the photometric window gate
+    &= the window holding only that id.  Returns (valid_b, rgb_ok_b), per
+    level (M, Hl, Wl)."""
+    ids3 = model_ids[:, None, None]
+    valid_b = tuple(
+        frame.valid[lv][None] & (mask_pyrs[lv][None] == ids3) for lv in range(len(mask_pyrs))
+    )
+    rgb_ok_b = tuple(
+        frame.rgb_ok[lv][None]
+        & (mask_bounds[lv][0][None] == ids3)
+        & (mask_bounds[lv][1][None] == ids3)
+        for lv in range(len(mask_pyrs))
+    )
+    return valid_b, rgb_ok_b
+
+
 def build_frame_pyramid(
     filtered_depth: torch.Tensor,
     intensity: torch.Tensor,
@@ -178,8 +216,8 @@ def build_frame_pyramid(
     depth_cutoff,
     max_depth_rgb: float = 6.0,
 ) -> FramePyramid:
-    """Current-frame tracking pyramids (unmasked: the single global model;
-    per-model mask gating comes with multi-model tracking, ROADMAP A9)."""
+    """Current-frame tracking pyramids, unmasked and shared by every model
+    (per-model mask gates are applied on top, `masked_validity_b`)."""
     levels = cfg.pyramid_levels
     depths = [filtered_depth]
     intens = [intensity]
@@ -263,10 +301,14 @@ def build_model_pyramid(
 
 
 def _icp_terms_b(Rcurr, tcurr, Rprev_inv, tprev, vm_c, nm_c, f_ok_b, icp_pack,
-                 cam_l, params, stride: int = 1):
+                 cam_l, params, stride: int = 1, with_dist: bool = True):
     """Projective data association + point-to-plane rows (reduce.cu:283-394)
     for all M models: poses (M, ...), frame geometry shared (h, w, 3),
-    per-model validity f_ok_b (M, h, w), model pack (M, Hl*Wl, 8)."""
+    per-model validity f_ok_b (M, h, w), model pack (M, Hl*Wl, 8).
+    Returns (A, b, err, count, dist_map): dist_map (M, h, w) is the
+    ungated correspondence distance (0 where there is none), the CRF's
+    error surface; None with `with_dist=False` (the GN iterations, where
+    XLA drops it unused and eager PyTorch would compute it)."""
     H, W = cam_l.height, cam_l.width
     if stride > 1:
         vm_c = vm_c[::stride, ::stride]
@@ -304,7 +346,11 @@ def _icp_terms_b(Rcurr, tcurr, Rprev_inv, tprev, vm_c, nm_c, f_ok_b, icp_pack,
     n_cp = _rotate_bm(Rprev_inv, nprev_g)
     r = pp.dot3(n_cp, s_cp - d_cp)
     rows = torch.cat([n_cp, pp.cross3(s_cp, n_cp), r[..., None]], dim=-1)
-    return _reduce_system_b(rows, found)
+    A, b, err, count = _reduce_system_b(rows, found)
+    if not with_dist:
+        return A, b, err, count, None
+    dist_map = torch.where(f_ok_b & inb & m_ok & torch.isfinite(dist), dist, 0.0)
+    return A, b, err, count, dist_map
 
 
 def _rgb_terms_b(resultRt, frame, rgb_ok_b, rgb_pack, lvl, cam_l, params,
@@ -544,10 +590,10 @@ def track_models(
                 A_rgb, b_rgb, rgb_cnt, rgb_err = zero66, zero6, zM, zM
 
             if use_icp:
-                A_icp, b_icp, icp_err_sq, icp_cnt = _icp_terms_b(
+                A_icp, b_icp, icp_err_sq, icp_cnt, _ = _icp_terms_b(
                     Rcurr, tcurr, Rprev_inv, tprev, frame.vmap[lvl],
                     frame.nmap[lvl], valid_b[lvl], model_b.icp_pack[lvl],
-                    cam_l, params, stride=stride,
+                    cam_l, params, stride=stride, with_dist=False,
                 )
                 icp_err = torch.sqrt(icp_err_sq) / torch.clamp(icp_cnt, min=1.0)
             else:
@@ -609,3 +655,36 @@ def track_models(
         rgb_count=st["rgb_cnt"],
         so3_error=so3_err.expand(M),
     )
+
+
+def icp_error_maps_b(
+    poses_new: torch.Tensor,
+    poses_prev: torch.Tensor,
+    vmap_c: torch.Tensor,
+    nmap_c: torch.Tensor,
+    valid_c: torch.Tensor,
+    model_b: ModelPyramid,
+    cam: CameraConfig,
+    params: TrackingParams,
+    stride: int = 1,
+) -> torch.Tensor:
+    """(M, H, W) per-pixel ICP error at the final poses, NOT mask-gated (the
+    CRF's unary input: masked tracking would zero a model's error exactly
+    where the other models' pixels are).  With `stride` the error is taken
+    on a strided subset and nearest-filled back to full resolution."""
+    M = poses_new.shape[0]
+    f_ok_b = valid_c[None].expand((M,) + tuple(valid_c.shape))
+    *_, dist_map = _icp_terms_b(
+        poses_new[:, :3, :3], poses_new[:, :3, 3],
+        poses_prev[:, :3, :3].transpose(1, 2), poses_prev[:, :3, 3],
+        vmap_c, nmap_c, f_ok_b, model_b.icp_pack[0],
+        cam.at_level(0), params, stride=stride,
+    )
+    if stride > 1:
+        # nearest fill by a broadcast (repeat_interleave would size its
+        # output on the host)
+        H, W = vmap_c.shape[:2]
+        _, Hs, Ws = dist_map.shape
+        dist_map = dist_map[:, :, None, :, None].expand(M, Hs, stride, Ws, stride)
+        dist_map = dist_map.reshape(M, Hs * stride, Ws * stride)[:, :H, :W]
+    return dist_map

@@ -227,8 +227,7 @@ def test_cli_static_export_matches_jax_engine(data, small_cam):
 
 @pytest.mark.parametrize(
     "option",
-    ["enable_multi_model", "keep_models", "enable_relocalization", "close_loops",
-     "frame_to_frame_rgb"],
+    ["enable_relocalization", "close_loops", "frame_to_frame_rgb"],
 )
 def test_unported_engine_options_raise(small_cam, option):
     with pytest.raises(NotImplementedError, match=r"not yet ported .*ROADMAP A\d+"):

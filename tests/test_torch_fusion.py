@@ -148,3 +148,35 @@ def test_clean_eval_matches(scene, small_cam, tcam, time, conf_threshold):
     if time > TICK:
         assert 0.0 < np.asarray(keep_j)[:n].mean() < 1.0  # the timeout gate fires
     np.testing.assert_allclose(cleaned_t.conf.numpy(), np.asarray(cleaned_j.conf), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("mask_id", [0, 1])
+def test_masked_clean_eval_matches(scene, small_cam, tcam, mask_id):
+    """The mask-mismatch penalty: a violated surfel whose pixel carries
+    another model's id, at the observed depth, loses confidence.  The mask
+    marks a band of the image as model 1; the free-space violations come
+    from the filtered depth pulled 5 cm forward over half the image."""
+    s = scene
+    imap2 = jfu.overlay_imap(s["fused"], s["imap"], s["aux"], s["fs"], jnp.asarray(s["pose"]), small_cam, TICK)
+    H, W = small_cam.shape
+    mask = np.zeros((H, W), np.int32)
+    mask[:, W // 3: 2 * W // 3] = 1
+    depth = np.array(s["filtered"])
+    depth[:, W // 2:] += 0.04
+    cleaned_j, keep_j = jfu.clean_eval(
+        s["fused"], imap2, jnp.asarray(depth), jnp.asarray(mask), mask_id, jnp.asarray(s["pose"]),
+        small_cam, s["cfg"], TICK, 200, 1.2, 3.0,
+    )
+    cleaned_t, keep_t = tfu.clean_eval(
+        convert.store_from_numpy(tuple(np.array(a) for a in s["fused"])),
+        trz.IndexMap(*(_t(a) for a in imap2)), _t(depth), _t(s["pose"]),
+        tcam, TICK, 200, torch.tensor(1.2), 3.0, mask=_t(mask), mask_id=torch.tensor(mask_id),
+    )
+    np.testing.assert_array_equal(keep_t.numpy(), np.asarray(keep_j))
+    np.testing.assert_allclose(cleaned_t.conf.numpy(), np.asarray(cleaned_j.conf), rtol=RTOL, atol=ATOL)
+    # the penalty fired: confidences below the unmasked pass's
+    plain_j, _ = jfu.clean_eval(
+        s["fused"], imap2, jnp.asarray(depth), None, 0, jnp.asarray(s["pose"]),
+        small_cam, s["cfg"], TICK, 200, 1.2, 3.0,
+    )
+    assert (np.asarray(cleaned_j.conf) < np.asarray(plain_j.conf)).sum() > 100

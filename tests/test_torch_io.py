@@ -117,3 +117,32 @@ def test_image_dir_and_calibration_equal(tmp_path):
     assert a[-1]["mask"] is None and a[0]["mask"] is not None
     np.testing.assert_array_equal(a[0]["rgb"], frames[0]["rgb"])
     out.close()
+
+
+@pytest.mark.parametrize("kind", ["segmentation", "labels"])
+def test_mask_and_label_pngs_decode_like_jax_exports(tmp_path, kind):
+    """The port's '-es' / '-el' PNGs (its own zlib encoder) decode to the
+    pixels of the JAX exporter's cv2-written files: slot ids with the
+    suppressed 255 zeroed, and the colour-table label image."""
+    import cv2
+
+    from cofusion_tpu.utils import export as jexport
+    from cofusion_tpu_torch.utils import export as texport
+
+    mask = np.random.default_rng(11).integers(0, 5, (H, W)).astype(np.uint8)
+    mask[:3] = 255
+    write = {"segmentation": "export_mask_png", "labels": "export_label_png"}[kind]
+    getattr(texport, write)(str(tmp_path / "port.png"), mask)
+    getattr(jexport, write)(str(tmp_path / "jax.png"), mask)
+    port = cv2.imread(str(tmp_path / "port.png"), cv2.IMREAD_UNCHANGED)
+    ref = cv2.imread(str(tmp_path / "jax.png"), cv2.IMREAD_UNCHANGED)
+    assert port.shape == ref.shape and port.dtype == np.uint8
+    np.testing.assert_array_equal(port, ref)
+
+
+def test_colorize_labels_matches():
+    from cofusion_tpu.utils import export as jexport
+    from cofusion_tpu_torch.utils import export as texport
+
+    mask = np.concatenate([np.arange(40), [255]]).astype(np.uint8).reshape(1, -1)
+    np.testing.assert_array_equal(texport.colorize_labels(mask), jexport.colorize_labels(mask))

@@ -87,10 +87,12 @@ def built(pair, small_cam, tcam, tconf):
         jnp.asarray(filtered1), jnp.asarray(intensity1), None, 0, cam, cfg, 4.5
     )
     tf = tod.build_frame_pyramid(_t(filtered1), _t(intensity1), tcam, tconf, 4.5)
+    # the intensity as the jitted engine computes it (a floor of FMA-contracted
+    # sums; see test_torch_preprocess.py)
     jm = jax.vmap(
-        lambda v, n, ok, im, p: jod.build_model_pyramid(v, n, ok, jpp.rgb_to_intensity(im), p, cam, cfg)
+        lambda v, n, ok, inten, p: jod.build_model_pyramid(v, n, ok, inten, p, cam, cfg)
     )(jnp.asarray(vert_conf[..., :3]), jnp.asarray(normal_rad[..., :3]), jnp.asarray(valid),
-      jnp.asarray(image), jnp.eye(4)[None])
+      jax.jit(jpp.rgb_to_intensity)(jnp.asarray(image)), jnp.eye(4)[None])
     tm = tod.build_model_pyramid(
         _t(vert_conf[0, ..., :3]), _t(normal_rad[0, ..., :3]), _t(valid[0]),
         tpp.rgb_to_intensity(_t(image[0])), torch.eye(4), tcam, tconf,
@@ -157,3 +159,130 @@ def test_track_models_matches(pair, built, small_cam, tcam, tconf, icp_weight):
             getattr(res_t, f).numpy(), np.asarray(getattr(res_j, f)), rtol=1e-3, err_msg=f
         )
     np.testing.assert_allclose(res_t.icp_error.numpy(), np.asarray(res_j.icp_error), rtol=1e-3)
+
+
+# --- masked multi-model tracking (M = 3: background, the sliding box, and
+# an empty slot whose id no pixel carries)
+
+
+@pytest.fixture(scope="module")
+def moving_pair(small_cam):
+    """Frame 0's map (JAX-rendered, one prediction for all three slots) and
+    frame 2 with its object mask (ids 0 and 1)."""
+    cfg = CoFusionConfig(camera=small_cam, max_models=3, max_surfels=1 << 17)
+    frames, _, _ = make_sequence(small_cam, 6, kind="orbit", moving_object=True)
+    f0, f1 = frames[0], frames[2]
+    bil = jax.jit(jpp.bilateral_filter)
+    rgb0 = jnp.asarray(f0["rgb"], jnp.float32)
+    d0 = jnp.asarray(f0["depth"])
+    fs = jfu.make_frame_surfels(d0, bil(d0, 4.5), rgb0, small_cam, 1.0, 4.5)
+    store = jfu.initialise(fs, jnp.eye(4), 1 << 17, time=1)
+    poses = jnp.broadcast_to(jnp.eye(4), (3, 4, 4))
+    stores = jax.tree.map(lambda a: jnp.broadcast_to(a[None], (3,) + a.shape), store)
+    pred = jax.jit(jrz.splat_predict_b, static_argnums=(2, 3))(
+        stores, poses, small_cam, cfg, 1, 200, jnp.full((3,), 4.5), jnp.full((3,), 0.0),
+    )
+    so3_ref = jpp.pyr_down_gauss(jpp.pyr_down_gauss(jpp.rgb_to_intensity(rgb0)))
+    filtered1 = np.array(bil(jnp.asarray(f1["depth"]), 4.5))
+    intensity1 = np.array(jpp.rgb_to_intensity(jnp.asarray(f1["rgb"], jnp.float32)))
+    return (cfg, filtered1, intensity1, tuple(np.array(a) for a in pred), np.array(so3_ref),
+            f1["mask"].astype(np.int32))
+
+
+def _mask_pyrs(mask, levels):
+    out = [mask]
+    for _ in range(levels - 1):
+        out.append(out[-1][::2, ::2])
+    return out
+
+
+def test_mask_window_bounds_matches(moving_pair):
+    mask = moving_pair[-1]
+    assert set(np.unique(mask)) == {0, 1}
+    jb = jod.mask_window_bounds([jnp.asarray(m) for m in _mask_pyrs(mask, 3)])
+    tb = tod.mask_window_bounds([_t(m) for m in _mask_pyrs(mask, 3)])
+    for lvl, ((jmn, jmx), (tmn, tmx)) in enumerate(zip(jb, tb)):
+        np.testing.assert_array_equal(tmn.numpy(), np.asarray(jmn), err_msg=f"min[{lvl}]")
+        np.testing.assert_array_equal(tmx.numpy(), np.asarray(jmx), err_msg=f"max[{lvl}]")
+
+
+@pytest.fixture(scope="module")
+def masked_built(moving_pair, small_cam, tcam):
+    """JAX and port frame/model pyramids (3 slots) and the masked per-model
+    validity, as the engines' multi-model step builds them."""
+    cfg, filtered1, intensity1, pred_np, _, mask = moving_pair
+    image, vert_conf, normal_rad, _, valid = pred_np
+    tconf = tcfg.CoFusionConfig(camera=tcam, max_models=3, max_surfels=1 << 17)
+    jf = jod.build_frame_pyramid(jnp.asarray(filtered1), jnp.asarray(intensity1), None, 0, small_cam, cfg, 4.5)
+    tf = tod.build_frame_pyramid(_t(filtered1), _t(intensity1), tcam, tconf, 4.5)
+    jm = jax.vmap(
+        lambda v, n, ok, inten, p: jod.build_model_pyramid(v, n, ok, inten, p, small_cam, cfg)
+    )(jnp.asarray(vert_conf[..., :3]), jnp.asarray(normal_rad[..., :3]), jnp.asarray(valid),
+      jax.jit(jpp.rgb_to_intensity)(jnp.asarray(image)), jnp.broadcast_to(jnp.eye(4), (3, 4, 4)))
+    pyrs = [
+        tod.build_model_pyramid(
+            _t(vert_conf[m, ..., :3]), _t(normal_rad[m, ..., :3]), _t(valid[m]),
+            tpp.rgb_to_intensity(_t(image[m])), torch.eye(4), tcam, tconf,
+        )
+        for m in range(3)
+    ]
+    tm = tod.ModelPyramid(*(tuple(torch.stack(lv) for lv in zip(*f)) for f in zip(*pyrs)))
+    ids = np.arange(3, dtype=np.int32)
+    jpyrs = [jnp.asarray(m) for m in _mask_pyrs(mask, 3)]
+    jbounds = jod.mask_window_bounds(jpyrs)
+    j_valid = tuple(jf.valid[lv][None] & (jpyrs[lv][None] == ids[:, None, None]) for lv in range(3))
+    j_rgb_ok = tuple(
+        jf.rgb_ok[lv][None] & (jbounds[lv][0][None] == ids[:, None, None])
+        & (jbounds[lv][1][None] == ids[:, None, None])
+        for lv in range(3)
+    )
+    tpyrs = [_t(m) for m in _mask_pyrs(mask, 3)]
+    t_valid, t_rgb_ok = tod.masked_validity_b(tf, tpyrs, tod.mask_window_bounds(tpyrs), _t(ids))
+    for lv in range(3):
+        np.testing.assert_array_equal(t_valid[lv].numpy(), np.asarray(j_valid[lv]))
+        np.testing.assert_array_equal(t_rgb_ok[lv].numpy(), np.asarray(j_rgb_ok[lv]))
+    assert not np.asarray(j_valid[0][2]).any() and np.asarray(j_valid[0][1]).any()
+    return cfg, tconf, jf, tf, jm, tm, (j_valid, j_rgb_ok), (t_valid, t_rgb_ok)
+
+
+def test_masked_track_models_matches(moving_pair, masked_built, small_cam, tcam):
+    """Three slots tracked at once under their mask gates: the background
+    and the box each against the same prediction; the empty slot finds no
+    correspondence (the engine then keeps an inactive slot's pose)."""
+    so3_ref = moving_pair[4]
+    cfg, tconf, jf, tf, jm, tm, (jv, jr), (tv, tr) = masked_built
+    poses = np.broadcast_to(np.eye(4, dtype=np.float32), (3, 4, 4)).copy()
+    res_j = jax.jit(jod.track_models, static_argnames=("cam", "cfg", "params"))(
+        jnp.asarray(poses), jf, jv, jr, jm, jnp.asarray(so3_ref), cam=small_cam, cfg=cfg,
+        params=TrackingParams(),
+    )
+    res_t = tod.track_models(_t(poses), tf, tv, tr, tm, _t(so3_ref), tcam, tconf, tcfg.TrackingParams())
+    np.testing.assert_allclose(res_t.pose.numpy(), np.asarray(res_j.pose), atol=1e-5)
+    for f in ("icp_count", "rgb_count"):
+        np.testing.assert_allclose(
+            getattr(res_t, f).numpy(), np.asarray(getattr(res_j, f)), rtol=1e-3, err_msg=f
+        )
+    assert np.asarray(res_j.icp_count)[1] > 50 and np.asarray(res_j.icp_count)[2] == 0
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_icp_error_maps_b_matches(moving_pair, masked_built, small_cam, tcam, stride):
+    """The CRF's unary input: ungated per-pixel ICP distance of every slot
+    at its new pose against its previous one (stride 2 nearest-fills back
+    to full resolution)."""
+    cfg, tconf, jf, tf, jm, tm, _, _ = masked_built
+    prev = np.broadcast_to(np.eye(4, dtype=np.float32), (3, 4, 4)).copy()
+    new = prev.copy()
+    new[1, :3, 3] = (0.01, -0.005, 0.002)
+    new[2, :3, 3] = (0.0, 0.02, 0.0)
+    maps_j = jod.icp_error_maps_b(
+        jnp.asarray(new), jnp.asarray(prev), jf.vmap[0], jf.nmap[0], jf.valid[0], jm,
+        small_cam, TrackingParams(), stride=stride,
+    )
+    maps_t = tod.icp_error_maps_b(
+        _t(new), _t(prev), tf.vmap[0], tf.nmap[0], tf.valid[0], tm, tcam, tcfg.TrackingParams(),
+        stride=stride,
+    )
+    assert maps_t.shape == (3,) + small_cam.shape
+    np.testing.assert_allclose(maps_t.numpy(), np.asarray(maps_j), rtol=RTOL, atol=ATOL)
+    assert (np.asarray(maps_j)[1] > 0.005).mean() > 0.3

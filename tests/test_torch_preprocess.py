@@ -6,7 +6,10 @@ Tolerances:
     by ~1 ulp between XLA and PyTorch, and XLA CPU contracts a*b+c into FMAs;
   * pyramids / vertex / normal maps: rtol=1e-5, atol=1e-6 — a handful of
     float32 ops, same order, FMA contraction on the XLA side only;
-  * intensity and Sobel gradients are floor/trunc of short sums: exact.
+  * intensity and Sobel gradients are floor/trunc of short sums: exact
+    against the compiled (jitted) JAX form the engine runs, whose
+    multiply-adds XLA contracts into FMAs (the eager form rounds each
+    product and differs at a few grey levels).
 """
 
 import jax
@@ -71,9 +74,15 @@ def test_bilateral_cuda_rejects_cpu_tensor():
 
 
 def test_rgb_to_intensity_exact():
-    rgb = np.random.default_rng(1).integers(0, 256, (48, 64, 3)).astype(np.uint8)
-    ref = np.asarray(jpp.rgb_to_intensity(jnp.asarray(rgb)))
-    np.testing.assert_array_equal(tpp.rgb_to_intensity(torch.from_numpy(rgb)).numpy(), ref)
+    """Every uint8 triple (grey ones sum to within an ulp of an integer),
+    and near-grey float colours like the splat's rendered ones."""
+    v = np.arange(256, dtype=np.float32)
+    triples = np.stack(np.meshgrid(v, v, v, indexing="ij"), -1).reshape(4096, 4096, 3)
+    rng = np.random.default_rng(1)
+    grey = np.repeat(rng.integers(0, 256, (256, 256, 1)), 3, -1) + rng.normal(0, 1e-4, (256, 256, 3))
+    for rgb in (triples, grey.astype(np.float32)):
+        ref = np.asarray(jax.jit(jpp.rgb_to_intensity)(jnp.asarray(rgb)))
+        np.testing.assert_array_equal(tpp.rgb_to_intensity(torch.from_numpy(rgb)).numpy(), ref)
 
 
 @pytest.mark.parametrize("shape", [(128, 160), (64, 80)])
@@ -104,13 +113,14 @@ def test_vmap_nmap_match():
 
 
 def test_sobel_gradients_exact():
-    img = np.floor(np.random.default_rng(5).uniform(0, 255, (48, 64))).astype(np.float32)
-    jx, jy = jpp.sobel_gradients(jnp.asarray(img))
-    tx, ty = tpp.sobel_gradients(torch.from_numpy(img))
-    # trunc of integer-valued sums: identical unless a sum lands within an
-    # ulp of an integer, which integer images with these coefficients avoid
-    np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
-    np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
+    """Integer images (level 0) and float ones (the coarser levels)."""
+    rng = np.random.default_rng(5)
+    for img in (np.floor(rng.uniform(0, 255, (512, 640))), rng.uniform(0, 255, (512, 640))):
+        img = img.astype(np.float32)
+        jx, jy = jax.jit(jpp.sobel_gradients)(jnp.asarray(img))
+        tx, ty = tpp.sobel_gradients(torch.from_numpy(img))
+        np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+        np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
 
 
 @pytest.mark.parametrize("normalize", [False, True])
