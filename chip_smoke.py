@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py [--baseline DIR]
 
-Drives the port's two paths through `CoFusion.process_frame`, after building
+Drives the port's paths through `CoFusion.process_frame`, after building
 every hand-written kernel from csrc/ and holding each against its plain
 PyTorch version on the card: the `-static` frame at 640x480 with the CLI's
-default capacity (2^20 surfels, 2^19 active), and the multi-model path at
-the JAX package's bench workload (640x480, 4 model slots, 2^22 surfels a
-slot, CRF motion segmentation of 3 moving boxes, bench.py:60-99,124-127).
+default capacity (2^20 surfels, 2^19 active), the multi-model path at the
+JAX package's bench workload (640x480, 4 model slots, 2^22 surfels a slot,
+CRF motion segmentation of 3 moving boxes, bench.py:60-99,124-127), and
+`-static -rl -cl` (fern relocalisation, local loop closure and the
+deformation graph at 256 nodes) at 640x480.
 Phases (each prints one line of findings and raises on failure; nothing is
 caught, nothing falls back to the CPU):
 
@@ -33,7 +35,7 @@ caught, nothing falls back to the CPU):
   5. timing       the same 30 frames again on a new engine, without the sync
                   check: frames 3-30 timed as one window (host enqueue time
                   and synchronised wall time per frame); poses and map
-                  bit-identical to phase 4's run (determinism); then 3 more
+                  bit-identical to phase 4's run (determinism); then 2 more
                   frames under torch.profiler: kernel launches and device
                   busy ms per frame, and the device's idle share
   6. parity       12-frame 160x128 orbit through the port on the CPU (plain
@@ -49,7 +51,7 @@ caught, nothing falls back to the CPU):
                   gated: ROADMAP C1); finite poses, peak memory,
                   first-frame ms; then phase 5's rerun (bit for bit: poses,
                   maps, masks) with the frames after the first spawn as the
-                  timing window, and the 3-frame profile; and the device ms
+                  timing window, and the 2-frame profile; and the device ms
                   of one object slot's fuse/clean, which an idle slot pays
                   as well (the idle-slot select)
   8. GT masks     12 frames of the same scene with its object masks
@@ -67,11 +69,35 @@ caught, nothing falls back to the CPU):
                   masks equal wherever that step keeps the CPU run's
                   (ROADMAP C8); on the card the teleported object spawns
                   with settled IoU > 0.6
+ 10. loop path    20 orbit frames through `-static -rl -cl` (depth cutoff
+                  4.5), frames 3-20 under the sync check: the bilateral
+                  kernel once a frame, the splat 4 times (the prediction,
+                  the loop block's active view and both tiers' inactive
+                  views); ATE, keyframes, peak memory; then phase 5's rerun
+                  and profile on it (`[loop_timing]`, `[determinism]`,
+                  `[profile]`), and `[loop_blocks]`: device ms, launches and
+                  extra memory of the reloc block, the always-computed loop
+                  block and its graph solve, by torch.profiler over 2
+                  calls on copies of the final state
+ 11. loop closure tests/test_local_loop.py's drift scenario at 640x480 (map
+                  aged out of the window, camera drifted (3, 1.5, 0) cm):
+                  a closure fires and the camera error ends below half the
+                  run's without '-cl'; the splat kernel bit-equal to its
+                  plain version on that state's own index maps
+ 12. reloc        tests/test_reloc.py's blackout scenario at 640x480: lost
+                  during the blackout, >= 1 keyframe, recovered within 3 cm
+ 13. loop parity  CPU against card as phase 9 for the drift run (80x64)
+                  and the blackout run (160x128): lost, loop-closed and
+                  keyframe count on every frame, the final keyframe codes
+                  exact; where one step's counts part, both devices step
+                  again with about an ulp of depth noise and the ranges of
+                  their counts must overlap (ROADMAP C11)
 
-The last stdout line is {"ok": true, "device": {...}}; before it, a
-{"kernels": [...]} line (`launches` from the multi-model path's run,
-`launches_static` from the static one's) and the nvidia-smi
-name/power-limit line.  Exits non-zero without a result when CUDA is
+Each phase line ends with `at_s`, the seconds since the start.  The last
+stdout line is {"ok": true, "device": {...}}; before it, a
+{"kernels": [...]} line (`launches` from the `-static -rl -cl` path's run,
+`launches_multi` and `launches_static` from the other two) and the
+nvidia-smi name/power-limit line.  Exits non-zero without a result when CUDA is
 unavailable or any phase fails.  Imports only the port (cofusion_tpu_torch),
 which imports nothing of JAX.
 """
@@ -86,9 +112,12 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+_T0 = time.perf_counter()
 
 
 def _phase(tag: str, /, **fields) -> None:
+    """One line of findings, ending with the seconds since the start."""
+    fields["at_s"] = f"{time.perf_counter() - _T0:.1f}"
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
@@ -497,11 +526,11 @@ def phase_timing(make_engine, frames, ref_eng, ref_masks=None, tag="timing", sta
            masks="bit-identical" if ref_masks is not None else "not compared",
            active_count=st.store.count.tolist(), stable_count=st.stable.count.tolist())
 
-    # where the time goes: launches and device busy time over 3 more frames
+    # where the time goes: launches and device busy time over 2 more frames
     # (the last frames fed again); idle share against the unprofiled window
     from torch.profiler import ProfilerActivity, profile
 
-    n = 3
+    n = 2
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for f in frames[-n:]:
             eng.process_frame(f)
@@ -746,73 +775,136 @@ def _tree_to(tree, device):
     return tree
 
 
+LOOP_CAM = dict(width=80, height=64, fx=66.0, fy=66.0, cx=40.0, cy=32.0)
+SMALL_CAM = dict(width=160, height=128, fx=132.0, fy=132.0, cx=80.0, cy=64.0)
+
+
+def _flags(state, closed) -> tuple:
+    """(lost, loop closed, keyframes) of a state and its step's outputs."""
+    db = state.fern_db
+    return (bool(state.lost), bool(closed), int(db.count) if hasattr(db, "count") else 0)
+
+
+NOISE_SEEDS = range(6)
+
+
+def _ulp_noised(depth, seed: int):
+    """`depth` scaled pixel by pixel by 1 + (-1, 0 or +1) x 2^-23 (about an
+    ulp), drawn on the CPU from `seed`."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    s = torch.from_numpy(rng.integers(-1, 2, tuple(depth.shape)).astype(np.float32))
+    return depth * (1 + s.to(depth.device) * 2.0 ** -23)
+
+
+class _Conditions:
+    """Within it, every `odometry.track_models` call's systems are kept;
+    `kappa()` is each slot's condition number of its worst Gauss-Newton
+    system in the step.  A slot without a solved system keeps its pose:
+    condition 1; the camera's bar takes the worst of its systems
+    (tracking, the fern ICP, the local loop's model-to-model solve)."""
+
+    def __enter__(self):
+        from cofusion_tpu_torch.ops import odometry as od
+
+        self.od, self.track, self.systems = od, od.track_models, []
+
+        def tracked(*a, **kw):
+            res = self.track(*a, **kw)
+            self.systems.append(res.A)
+            return res
+
+        od.track_models = tracked
+        return self
+
+    def __exit__(self, *exc):
+        self.od.track_models = self.track
+
+    def kappa(self):
+        import numpy as np
+
+        conds = [np.nan_to_num(np.linalg.cond(A.double().cpu().numpy()), nan=1.0, posinf=1.0)
+                 for A in self.systems]
+        kappa = conds[0]
+        kappa[0] = max(float(c.max()) for c in conds)
+        return kappa
+
+
 def _run_small(device, frames, kind: str):
-    """A 160x128 run on `device`: "static" (max_models=1, 2^17 surfels),
-    "gt" (tests/test_multimodel.py's configuration) or "crf"
-    (tests/test_crf_engine.py's).  Returns per-frame (poses, active,
-    counts), the drained masks, and every step's input (state copy, frame
-    tensors, run-time scalars, static options) plus the final state, so a
-    step can be replayed on another device."""
+    """A small run on `device`: at 160x128 "static" (max_models=1, 2^17
+    surfels), "gt" (tests/test_multimodel.py's configuration), "crf"
+    (tests/test_crf_engine.py's) or "reloc" (tests/test_reloc.py's); at
+    80x64 "loop" (tests/test_local_loop.py's drift run: the map aged and
+    the camera drifted before frame 6).  Returns per-frame (poses, active,
+    counts, flags), the drained masks, and every step's input (state copy,
+    frame tensors, run-time scalars, static options) and output state, plus
+    the final state, so a step can be replayed on another device, and
+    each step's conditions (`_Conditions.kappa`)."""
     import cofusion_tpu_torch.engine as engine_mod
     from cofusion_tpu_torch.config import CameraConfig, CoFusionConfig, FusionParams
 
-    cam = CameraConfig(width=160, height=128, fx=132.0, fy=132.0, cx=80.0, cy=64.0)
-    if kind == "static":
-        cfg = CoFusionConfig(camera=cam, max_models=1, max_surfels=1 << 17)
+    cam = CameraConfig(**(LOOP_CAM if kind == "loop" else SMALL_CAM))
+    options = {}
+    if kind in ("static", "reloc"):
+        cfg = CoFusionConfig(camera=cam, max_models=1, max_surfels=1 << (16 if kind == "reloc" else 17))
         fusion = dict(depth_cutoff=4.5)
+        if kind == "reloc":
+            fusion.update(fern_min_age=3, fern_icp_error_thresh=1.2e-3, confidence_global=1.0)
+            options = dict(enable_relocalization=True)
+    elif kind == "loop":
+        cfg = CoFusionConfig(camera=cam, max_models=1, max_surfels=1 << 14, deform_nodes=64,
+                             cons_sample=8)
+        fusion, options = LOOP_FUSION, dict(close_loops=True)
     else:
         cfg = CoFusionConfig(camera=cam, max_models=3, max_surfels=1 << 16,
                              superpixel_size=6 if kind == "crf" else 16)
         fusion = MULTI_FUSION if kind == "crf" else dict(
             depth_cutoff=4.5, confidence_object=0.01, model_spawn_offset=0)
-    eng = engine_mod.CoFusion(cfg, fusion_params=FusionParams(**fusion),
-                              enable_multi_model=kind != "static", device=device)
+        options = dict(enable_multi_model=True)
+    eng = engine_mod.CoFusion(cfg, fusion_params=FusionParams(**fusion), device=device, **options)
     steps, step = [], engine_mod._step
 
     def recording_step(state, *args, **kw):
-        steps.append((_tree_to(state, device), args, kw))
-        return step(state, *args, **kw)
+        before = _tree_to(state, device)
+        with _Conditions() as conds:
+            new, outputs = step(state, *args, **kw)
+        steps.append((before, args, kw, _tree_to(new, device), conds.kappa()))
+        return new, outputs
 
     log = []
     engine_mod._step = recording_step
     try:
-        for f in frames:
+        for i, f in enumerate(frames):
+            if kind == "loop" and i == 6:
+                _age_and_drift(eng)
             eng.process_frame(f)
             st = eng.stats()
-            log.append((st["poses"], st["active"], st["surfel_counts"]))
+            closed = eng._last_outputs.loop_closed if eng._last_outputs is not None else False
+            log.append((st["poses"], st["active"], st["surfel_counts"], _flags(eng.state, closed)))
     finally:
         engine_mod._step = step
     return log, dict(eng.drain_segmentation(flush=True)), steps, _tree_to(eng.state, device)
 
 
-def _replay(steps, final, k, device):
+def _replay(steps, k, device, noise=None):
     """Step k (frame k + 1) replayed from its recorded input state on
-    `device`: (poses, counts, active, mask, condition number of each slot's
-    final Gauss-Newton system) of the replay, and (poses, counts, active,
-    mask) of the recorded run's next state."""
-    import numpy as np
+    `device`, its depth frame `_ulp_noised` with seed `noise` if given:
+    (poses, counts, active, mask, flags, condition number of each slot's
+    worst Gauss-Newton system) of the replay, and (poses, counts, active,
+    mask) of the recorded step's output state."""
     import torch
 
     from cofusion_tpu_torch.engine import _step
-    from cofusion_tpu_torch.ops import odometry as od
 
-    state, args, kw = steps[k]
+    state, args, kw, ref, _ = steps[k]
+    state = _tree_to(state, device)
     args = tuple(_tree_to(a, device) if isinstance(a, torch.Tensor) else a for a in args)
-    track, systems = od.track_models, []
-
-    def tracked(*a, **kw_):
-        res = track(*a, **kw_)
-        systems.append(res.A)
-        return res
-
-    od.track_models = tracked
-    try:
-        new, _ = _step(_tree_to(state, device), *args, **kw)
-    finally:
-        od.track_models = track
-    ref = steps[k + 1][0] if k + 1 < len(steps) else final
-    # a slot without a solved system keeps its pose: condition 1
-    kappa = np.nan_to_num(np.linalg.cond(systems[0].double().cpu().numpy()), nan=1.0, posinf=1.0)
+    if noise is not None:  # _step(state, rgb, depth, mask, fparams)
+        args = (args[0], _ulp_noised(args[1], noise)) + args[2:]
+    with _Conditions() as conds:
+        new, outputs = _step(state, *args, **kw)
 
     def out(st):
         m = st.models
@@ -820,7 +912,7 @@ def _replay(steps, final, k, device):
         return (m.pose.cpu().numpy(), counts.cpu().numpy(), m.active.cpu().numpy(),
                 st.prev_mask.cpu().numpy())
 
-    return out(new) + (kappa,), out(ref)
+    return out(new) + (_flags(new, outputs.loop_closed), conds.kappa()), out(ref)
 
 
 # The pose bars (1e-5 a step, + 2e-6 a frame over a run) are derived in
@@ -841,57 +933,94 @@ def _parity(name, frames, kind):
     The whole runs must then agree within the bar plus that response:
     camera poses within the bar, each slot's pose within the scaled bar
     plus the response, and counts and masks on every frame where the CPU's
-    replay keeps the CPU run's.  Returns the phase line's fields and the
-    card's run."""
+    replay keeps the CPU run's.  Where a step's counts part (the card's
+    against the CPU's, from one state), both devices step again from that
+    state with about an ulp of noise on the depth frame (`_ulp_noised`,
+    NOISE_SEEDS) and the ranges of their counts must overlap (a frame whose
+    fusion gates sit on fp32 rounding, ROADMAP C11); each such frame is
+    listed.  Returns the phase line's fields and the card's run."""
     import numpy as np
+    import torch
 
     cpu, cpu_masks, cpu_steps, cpu_final = _run_small("cpu", frames, kind)
     card, card_masks, card_steps, card_final = _run_small("cuda", frames, kind)
     n = len(frames)
-    flip, worst_cam, worst_step, gap, scaled, kmax = n, 0.0, 0.0, None, [], None
+    flip, worst_cam, worst_step, gap, scaled, kmax, parted_counts = n, 0.0, 0.0, None, [], None, []
+
+    def within_noise(steps, k, card_counts, cpu_counts, where):
+        """The card's and the CPU's counts of step k from `steps`' state,
+        each with and without ulp noise on the depth, overlap in range."""
+        on = {dev: np.stack([c] + [_replay(steps, k, dev, noise=seed)[0][1] for seed in NOISE_SEEDS])
+              for dev, c in (("cpu", cpu_counts), ("cuda", card_counts))}
+        lo = np.maximum(on["cpu"].min(0), on["cuda"].min(0))
+        hi = np.minimum(on["cpu"].max(0), on["cuda"].max(0))
+        parted_counts.append(dict(frame=k + 1, step=where, cpu=cpu_counts.tolist(), card=card_counts.tolist(),
+                            cpu_noised=on["cpu"][1:].sum(1).tolist(),
+                            card_noised=on["cuda"][1:].sum(1).tolist()))
+        return bool((lo <= hi).all())
+
     for step in range(1, n):
         bar = 1e-5 + 2e-6 * step
-        (pc, ac, cc), (pg, ag, cg) = cpu[step], card[step]
+        (pc, ac, cc, fc), (pg, ag, cg, fg) = cpu[step], card[step]
         # the CPU's own step (its systems' condition scales the bars), and one
         # card step from the CPU's state against it
-        (_, _, _, _, kappa), _ = _replay(cpu_steps, cpu_final, step - 1, "cpu")
+        kappa = cpu_steps[step - 1][4]
         scale = np.maximum(1.0, kappa / KAPPA_REF)
         kmax = kappa if kmax is None else np.maximum(kmax, kappa)
-        (rp, rc, ra, rm, _), (qp, qc, qa, qm) = _replay(cpu_steps, cpu_final, step - 1, "cuda")
+        (rp, rc, ra, rm, rf, _), (qp, qc, qa, qm) = _replay(cpu_steps, step - 1, "cuda")
         d_step = np.abs(rp - qp).max(axis=(1, 2))
         worst_step = max(worst_step, float(d_step.max()))
         for m in np.flatnonzero(scale > 1.0):
             scaled.append(dict(frame=step, slot=int(m), condition=float(kappa[m]),
                                step_pose_diff=float(d_step[m]), step_bar=STEP_BAR * float(scale[m])))
-        if not ((d_step <= STEP_BAR * scale).all() and np.array_equal(rc, qc) and np.array_equal(ra, qa)
-                and np.array_equal(rm, qm)):
+        counts_ok = np.array_equal(rc, qc) or within_noise(cpu_steps, step - 1, rc, qc,
+                                                           "card from the CPU's state")
+        if not ((d_step <= STEP_BAR * scale).all() and counts_ok and np.array_equal(ra, qa)
+                and np.array_equal(rm, qm) and rf == fc):
             raise RuntimeError(f"{name} parity: the card's step from the CPU state at frame {step}: "
-                               f"pose |d| {d_step} (bars {STEP_BAR * scale}), counts {rc} vs {qc}, "
-                               f"active {ra} vs {qa}, mask equal {np.array_equal(rm, qm)}")
+                               f"pose |d| {d_step} (bars {STEP_BAR * scale}), counts {rc} vs {qc} "
+                               f"(under ulp noise: {parted_counts[-1:]}), active {ra} vs {qa}, mask equal "
+                               f"{np.array_equal(rm, qm)}, (lost, closed, keyframes) {rf} vs {fc}")
         # the CPU's own response to the card's state
-        (op, oc, _, om, _), _ = _replay(card_steps, card_final, step - 1, "cpu")
+        (op, oc, _, om, _, _), _ = _replay(card_steps, step - 1, "cpu")
         response = np.abs(op - pc).max(axis=(1, 2))
         keeps = np.array_equal(oc, cc) and np.array_equal(om, cpu_masks[step + 1])
         d_cam = float(np.abs(pc[0] - pg[0]).max())
         worst_cam = max(worst_cam, d_cam)
         d = np.abs(pc - pg).max(axis=(1, 2))
         same = np.array_equal(cc, cg) and np.array_equal(cpu_masks[step + 1], card_masks[step + 1])
-        if d_cam > bar or not np.array_equal(ac, ag) or (d > bar * scale + response).any() or (
-                keeps and not same):
+        # the camera is held to the bar alone, except where the step solves
+        # the loop's or the fern's systems too (C8's scaled bar and response)
+        cam_bar = bar * scale[0] + response[0] if kind in ("loop", "reloc") else bar
+        # the runs' counts part at a step of their own: the card's step from
+        # its state against the CPU's from the same state
+        parted = keeps and not same and not (
+            np.array_equal(cpu_masks[step + 1], card_masks[step + 1])
+            and within_noise(card_steps, step - 1, cg, oc, "CPU from the card's state"))
+        if d_cam > cam_bar or not np.array_equal(ac, ag) or fc != fg or (
+                d > bar * scale + response).any() or parted:
             raise RuntimeError(f"{name} parity: frame {step} camera {d_cam}, poses {d} (bars "
                                f"{bar * scale} + the CPU's response {response}), active {ac} vs {ag}, "
                                f"counts {cc} vs {cg}, masks equal {same}, CPU replay keeps its "
-                               f"counts/mask {keeps}")
+                               f"counts/mask {keeps} (under ulp noise: {parted_counts[-1:]}), (lost, closed, "
+                               f"keyframes) {fc} vs {fg}")
         if flip == n and ((d > bar).any() or not same):
             flip, gap = step, dict(pose_diff=d.tolist(), cpu_counts=cc.tolist(), card_counts=cg.tolist(),
                                    masks_equal=same, cpu_response=response.tolist(),
                                    cpu_replay_counts=oc.tolist())
-    line = dict(path=name, frames=n, camera="160x128", max_camera_pose_diff=worst_cam,
+    line = dict(path=name, frames=n, camera=f"{cpu_final.prev_rgb.shape[1]}x{cpu_final.prev_rgb.shape[0]}",
+                max_camera_pose_diff=worst_cam,
                 max_step_pose_diff=worst_step,
                 bar="1e-5+2e-6*step; one step 1e-5; a slot's x max(1, condition/1e2)",
                 max_condition_per_slot=[round(float(k), 1) for k in kmax], scaled_bars=scaled,
-                first_frame_off_bar=flip, there=gap,
+                first_frame_off_bar=flip, there=gap, counts_part_within_ulp_noise=parted_counts,
                 cpu_counts=cpu[-1][2].tolist(), card_counts=card[-1][2].tolist())
+    db_cpu, db_card = cpu_final.fern_db, card_final.fern_db
+    if hasattr(db_cpu, "codes"):
+        if not torch.equal(db_cpu.codes.cpu(), db_card.codes.cpu()):
+            raise RuntimeError(f"{name} parity: keyframe codes differ between CPU and card")
+        line["keyframes"] = int(db_card.count)
+        line["keyframe_codes"] = "equal"
     return line, card, card_masks
 
 
@@ -917,7 +1046,7 @@ def phase_parity_multi():
     for name, frames, kind in (("gt_masks", gt_frames, "gt"), ("crf_teleport", crf_frames, "crf")):
         line, card, card_masks = _parity(name, frames, kind)
         n = len(frames)
-        line["spawn_frame"] = next(i for i, (_, a, _) in enumerate(card) if a[1:].any())
+        line["spawn_frame"] = next(i for i, (_, a, *_) in enumerate(card) if a[1:].any())
         if kind == "crf":
             slot = 1 + int(np.argmax(card[-1][1][1:]))
             line["card_settled_iou"] = [round(_iou(card_masks[i + 1] == slot, crf_gt[i] == 1), 4)
@@ -927,11 +1056,303 @@ def phase_parity_multi():
             raise RuntimeError(f"teleport IoU on the card {line['card_settled_iou']} <= 0.6")
 
 
+# --- relocalisation and loop closure ('-rl -cl', ROADMAP A12-A13)
+LOOP_FRAMES = 20
+LOOP_FUSION = dict(depth_cutoff=4.5, confidence_global=1.0, local_loop_cov_thresh=1e-4,
+                   local_loop_err_thresh=5e-4)
+DRIFT = (0.03, 0.015, 0.0)
+
+
+def _loop_engine(dev, reloc=True, close=True, **fusion):
+    """`-static -rl -cl` at full width: CoFusionConfig(max_models=1) (2^20
+    surfels, active 2^19, deform_nodes 256, cons_sample 20)."""
+    from cofusion_tpu_torch.config import CameraConfig, CoFusionConfig, FusionParams
+    from cofusion_tpu_torch.engine import CoFusion
+
+    cfg = CoFusionConfig(camera=CameraConfig(), max_models=1)
+    return CoFusion(cfg, fusion_params=FusionParams(**dict(dict(depth_cutoff=4.5), **fusion)),
+                    enable_relocalization=reloc, close_loops=close, device=dev)
+
+
+def phase_loop_path(dev, frames, gt):
+    """LOOP_FRAMES orbit frames through `-static -rl -cl`, frames 3.. under
+    the sync check; launch counters, ATE, keyframes, peak memory."""
+    import numpy as np
+    import torch
+
+    from cofusion_tpu_torch.ops import cuda_splat, cuda_stencil
+    from cofusion_tpu_torch.utils.export import ate_rmse
+
+    frames, gt = frames[:LOOP_FRAMES], gt[:LOOP_FRAMES]
+    eng = _loop_engine(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold: the path's own peak is above it
+    before = torch.cuda.memory_allocated()
+    cuda_stencil.bilateral_filter_cuda.launches = 0
+    cuda_splat.splat_window_cuda.launches = 0
+    t0 = time.perf_counter()
+    eng.process_frame(frames[0])
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    eng.process_frame(frames[1])
+    torch.cuda.synchronize()
+    closed, t0 = [], time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for f in frames[2:]:
+            eng.process_frame(f)
+            closed.append(eng._last_outputs.loop_closed)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    checked_ms = (time.perf_counter() - t0) * 1e3 / len(frames[2:])
+    launches = {
+        "bilateral_filter": cuda_stencil.bilateral_filter_cuda.launches,
+        "splat_window": cuda_splat.splat_window_cuda.launches,
+    }
+    peak = torch.cuda.max_memory_allocated()
+    est = [p[1][0] for p in eng.pose_log]
+    ate = ate_rmse(est, gt, align=False)
+    n = len(frames)
+    keyframes = int(eng.state.fern_db.count)
+    lost = bool(eng.state.lost)
+    n_closed = int(sum(bool(c) for c in closed))
+    _phase("loop_path", frames=n, launches=launches,
+           splat_per_frame=f"{(launches['splat_window'] - 1) / (n - 1):.2f}",
+           ate_m=f"{ate:.6f}", surfels=eng.surfel_count(0), keyframes=keyframes, lost=lost,
+           loops_closed=n_closed, first_frame_ms=f"{first_ms:.3f}", max_memory_allocated_bytes=peak,
+           allocated_before_bytes=before, path_peak_bytes=peak - before,
+           sync_debug=f"error on frames 3-{n}", checked_ms_per_frame=f"{checked_ms:.3f}")
+    # the init render, then 4 splats a frame: the prediction, the loop's
+    # active view and its two inactive tiers
+    if launches["bilateral_filter"] != n or launches["splat_window"] != 1 + 4 * (n - 1):
+        raise RuntimeError(f"loop path launches {launches}, expected {n} and {1 + 4 * (n - 1)}")
+    if not ate < 0.003:
+        raise RuntimeError(f"loop path ATE {ate:.6f} m >= 3 mm")
+    if lost or keyframes < 1 or not all(np.isfinite(p).all() for p in est):
+        raise RuntimeError(f"loop path: lost {lost}, keyframes {keyframes}, finite poses")
+    return launches, eng
+
+
+def phase_loop_blocks(eng):
+    """Device busy ms of the blocks '-rl' and '-cl' add to every frame (the
+    deformation branch is computed whether a loop closes or not), each from
+    torch.profiler over 2 calls on copies of the final state: the sum of
+    the device time of the kernels they launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import cofusion_tpu_torch.engine as em
+    from cofusion_tpu_torch.ops import deformation as df
+
+    st, cfg, cam = eng.state, eng.cfg, eng.cam
+    fp = dict(eng._fparams, weight_multiplier=1.0)
+    A0 = torch.eye(6, device=st.prev_rgb.device) * 1e6
+    pose0, conf0 = st.models.pose[0], st.models.conf_threshold[0]
+    store0, stable0 = em._unbatch(st.models.store), em._unbatch(st.models.stable)
+    tick = st.tick + 1
+
+    def reloc():
+        s = _tree_to(st, st.prev_rgb.device)
+        return em._relocalise(s, A0, pose0, st.prev_rgb, st.prev_filtered, cam, cfg, eng.tracking,
+                              fp, tick)
+
+    fern = reloc()[4]
+
+    def close():
+        s = _tree_to(st, st.prev_rgb.device)
+        return em._close_loop(s, _tree_to(store0, pose0.device), _tree_to(stable0, pose0.device),
+                              pose0, conf0, st.lost, fern, cam, cfg, eng.tracking, fp, tick)
+
+    graph = df.sample_graph(em.sm.concat_stores(stable0, store0), cfg.deform_nodes)
+    C = (cam.height + cfg.cons_sample - 1) // cfg.cons_sample * ((cam.width + cfg.cons_sample - 1)
+                                                              // cfg.cons_sample)
+    src = graph.positions.index_select(0, torch.arange(C, device=pose0.device) % cfg.deform_nodes)
+    times = graph.times.index_select(0, torch.arange(C, device=pose0.device) % cfg.deform_nodes)
+    ok = torch.ones(C, dtype=torch.bool, device=pose0.device)
+
+    def solve():
+        return df.optimize(graph, src, times, src + 0.01, ok)
+
+    out = {}
+    for name, fn in (("reloc_block", reloc), ("close_loop_block", close), ("graph_solve", solve)):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        busy = sum(e.self_device_time_total for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / 2
+        launches = sum(e.count for e in events if "LaunchKernel" in e.key) / 2
+        out[name] = dict(device_busy_ms=f"{busy:.3f}" if busy else "not measured",
+                         launches=launches,
+                         peak_extra_bytes=torch.cuda.max_memory_allocated() - base)
+    _phase("loop_blocks", constraints=C, deform_nodes=cfg.deform_nodes,
+           jacobian_bytes=(18 * cfg.deform_nodes + 3 * C) * 12 * cfg.deform_nodes * 4, **out,
+           method="torch.profiler over 2 calls on copies of the final state")
+
+
+def _age_and_drift(eng):
+    """Age the whole active tier out of the time window and add DRIFT to the
+    camera (tests/test_local_loop.py's drift scenario)."""
+    import torch
+
+    st = eng.state
+    store = st.models.store
+    pose = st.models.pose.clone()
+    pose[0, :3, 3] += torch.tensor(DRIFT, dtype=pose.dtype).to(pose.device, non_blocking=True)
+    aged = torch.where(store.valid, -500.0, store.last_time)
+    eng.state = st._replace(models=st.models._replace(store=store._replace(last_time=aged),
+                                                      pose=pose))
+
+
+def _splat_on_loop_maps(eng):
+    """The splat kernel against its plain version, bit for bit, on the loop
+    block's own index maps of the current state: the active view and the
+    inactive views of both tiers, passed as splat_from_imap passes them."""
+    import torch
+
+    import cofusion_tpu_torch.engine as em
+    from cofusion_tpu_torch.ops import cuda_splat
+    from cofusion_tpu_torch.ops import rasterize as rz
+
+    st, cfg, cam, fp = eng.state, eng.cfg, eng.cam, eng._fparams
+    pose0, conf0 = st.models.pose[0], st.models.conf_threshold[0]
+    rows = []
+    for tier, store, active in (("active view", st.models.store, True),
+                                ("inactive, active tier", st.models.store, False),
+                                ("inactive, stable tier", st.models.stable, False)):
+        imap = rz.predict_indices(em._unbatch(store), pose0, cam, st.tick, fp["time_delta"],
+                                  fp["depth_cutoff"], conf_threshold=conf0, active_window=active)
+        args = (imap.vert_conf[None, ..., :3], imap.normal_rad[None, ..., :3],
+                imap.normal_rad[None, ..., 3], imap.valid[None], cfg.splat_radius,
+                (cam.fx, cam.fy, cam.cx, cam.cy))
+        n = cuda_splat.splat_window_cuda.launches
+        z_k, tap_k = cuda_splat.splat_window_cuda(*args)
+        cuda_splat.splat_window_cuda.launches = n  # a check, not the path's launch
+        z_p, tap_p = cuda_splat.splat_window_plain(*args)
+        torch.cuda.synchronize()
+        mism = int((tap_k != tap_p).sum())
+        rows.append(dict(map=tier, valid_pixels=int(imap.valid.sum()), tap_mismatches=mism,
+                         max_abs_z_err=_max_err(z_k, z_p)))
+        if mism or not torch.equal(z_k, z_p):
+            raise RuntimeError(f"splat kernel differs from plain on the loop's {tier} map: {rows[-1]}")
+    return rows
+
+
+def phase_loop_closure(dev, frames, gt):
+    """tests/test_local_loop.py's drift scenario at 640x480: 6 frames warm
+    the map, the map is aged out of the window and the camera drifts by
+    DRIFT, 4 more frames.  A closure must fire and the final camera error
+    must be below half that of the same run without '-cl'.  The splat
+    kernel is held to its plain version on this run's own index maps,
+    right after the drift (the aged map: the inactive view) and at the end
+    (the closure refreshed the map's stamps: the active view).  The stable
+    tier stays empty here (nothing is 200 frames old)."""
+    import numpy as np
+
+    n_warm = 6
+    errs, closed_at, kernel_rows = {}, None, None
+    for close in (True, False):
+        eng = _loop_engine(dev, reloc=False, close=close, **LOOP_FUSION)
+        for f in frames[:n_warm]:
+            eng.process_frame(f)
+        _age_and_drift(eng)
+        if close:
+            kernel_rows = [dict(row, frame=n_warm) for row in _splat_on_loop_maps(eng)]
+        closed = []
+        for f in frames[n_warm:]:
+            eng.process_frame(f)
+            closed.append(bool(eng._last_outputs.loop_closed))
+        if close:
+            kernel_rows += [dict(row, frame=len(frames)) for row in _splat_on_loop_maps(eng)]
+        errs[close] = float(np.linalg.norm(eng.camera_pose()[:3, 3] - gt[-1][:3, 3]))
+        if close:
+            closed_at = [n_warm + i for i, c in enumerate(closed) if c]
+    _phase("loop_closure", frames=len(frames), drift_m=DRIFT, closed_at_frames=closed_at,
+           camera_err_closed_m=f"{errs[True]:.6f}", camera_err_open_m=f"{errs[False]:.6f}",
+           ratio=f"{errs[True] / errs[False]:.3f}", bar="a closure fires; ratio < 0.5")
+    for row in kernel_rows:
+        _phase("kernels", kernel="splat_window", on="loop closure's own index maps", **row,
+               bar="bit-equal")
+    if not closed_at or not errs[True] < 0.5 * errs[False]:
+        raise RuntimeError(f"drift scenario: closures at {closed_at}, errors {errs}")
+
+
+def phase_reloc(dev):
+    """tests/test_reloc.py's blackout scenario at 640x480: 6 frames of the
+    scene, 14 of a blacked-out sensor, 3 of the scene seen from 7 cm away
+    (fern_min_age 3, confidence_global 1).  Lost during the blackout, at
+    least one keyframe, and the pose recovered within 3 cm."""
+    import numpy as np
+
+    from cofusion_tpu_torch.config import CameraConfig
+    from cofusion_tpu_torch.io.synthetic import SyntheticScene
+
+    cam = CameraConfig()
+    eng = _loop_engine(dev, close=False, fern_min_age=3, confidence_global=1.0)
+    scene = SyntheticScene()
+    T_re = np.eye(4)
+    T_re[:3, 3] = (0.06, -0.03, 0.02)
+    rgb0, d0, _ = scene.render(cam, np.eye(4))
+    rgb_re, d_re, _ = scene.render(cam, T_re)
+    seq = [(rgb0, d0)] * 6 + [(np.full_like(rgb0, 10), np.zeros_like(d0))] * 14 + [(rgb_re, d_re)] * 3
+    lost = []
+    for i, (rgb, d) in enumerate(seq):
+        eng.process_frame({"rgb": rgb, "depth": d, "mask": None, "timestamp": i})
+        lost.append(bool(eng.state.lost))
+    err = float(np.linalg.norm(eng.camera_pose()[:3, 3] - T_re[:3, 3]))
+    keyframes = int(eng.state.fern_db.count)
+    _phase("reloc", frames=len(seq), lost_frames=[i for i, x in enumerate(lost) if x],
+           keyframes=keyframes, recovered_at=next((i for i in range(20, len(seq)) if not lost[i]), None),
+           final_error_m=f"{err:.6f}", bar="lost in the blackout, >= 1 keyframe, error < 0.03")
+    if any(lost[:6]) or not any(lost[6:20]) or lost[-1] or keyframes < 1 or not err < 0.03:
+        raise RuntimeError(f"blackout scenario: lost {lost}, keyframes {keyframes}, error {err}")
+
+
+def phase_loop_parity():
+    """CPU against card by replayed steps (as phases 6 and 9): the drift run
+    at 80x64 and the blackout run at 160x128; lost, loop-closed and the
+    keyframe count on every frame and the final keyframe codes exact."""
+    import numpy as np
+
+    from cofusion_tpu_torch.config import CameraConfig
+    from cofusion_tpu_torch.io.synthetic import SyntheticScene, make_sequence
+
+    drift_frames, _, _ = make_sequence(CameraConfig(**LOOP_CAM), 10, kind="still")
+    cam = CameraConfig(**SMALL_CAM)
+    scene = SyntheticScene()
+    T_re = np.eye(4)
+    T_re[:3, 3] = (0.06, -0.03, 0.02)
+    rgb0, d0, _ = scene.render(cam, np.eye(4))
+    rgb_re, d_re, _ = scene.render(cam, T_re)
+    seq = [(rgb0, d0)] * 6 + [(np.full_like(rgb0, 10), np.zeros_like(d0))] * 14 + [(rgb_re, d_re)] * 3
+    reloc_frames = [{"rgb": r, "depth": d, "mask": None, "timestamp": i} for i, (r, d) in enumerate(seq)]
+    for name, frames, kind in (("loop_drift", drift_frames, "loop"), ("reloc_blackout", reloc_frames, "reloc")):
+        line, card, _ = _parity(name, frames, kind)
+        line["closed_at"] = [i for i, rec in enumerate(card) if rec[3][1]]
+        line["lost_frames"] = [i for i, rec in enumerate(card) if rec[3][0]]
+        _phase("loop_parity", **line)
+        if kind == "loop" and not line["closed_at"]:
+            raise RuntimeError("loop parity: the drift run closed no loop")
+        if kind == "reloc" and (not line["lost_frames"] or card[-1][3][0]):
+            raise RuntimeError(f"reloc parity: lost frames {line['lost_frames']}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR",
                     help="also time the kernels built from the .cu files in DIR")
+    ap.add_argument("--only", metavar="GROUPS",
+                    help="run only these comma-separated groups of phases (kernels, static, "
+                         "multi, loop) and print no result lines: for development")
     opts = ap.parse_args(argv)
+    groups = set(opts.only.split(",")) if opts.only else {"kernels", "static", "multi", "loop"}
     import torch
 
     if not torch.cuda.is_available():
@@ -960,36 +1381,52 @@ def main(argv=None) -> int:
     _phase("frames", n=len(frames), shape=frames[0]["depth"].shape,
            seconds=f"{time.perf_counter() - t0:.1f}")
 
-    kern = phase_kernels(dev, frames[0]["depth"], opts.baseline)
-    launches_static, eng = phase_main_path(dev, frames, gt)
-    phase_timing(lambda: _engine(dev), frames, eng)
-    del eng
-    phase_parity()
-
-    t0 = time.perf_counter()
     cam = CameraConfig()
-    unique = make_multi_object_frames(cam, 12, masks=True)
-    gt_ids = [f["mask"] for f in unique]
-    crf_frames = [dict(unique[i % 12], mask=None, timestamp=i) for i in range(MULTI_FRAMES)]
-    _phase("frames", n=len(crf_frames), unique=len(unique), objects=3,
-           seconds=f"{time.perf_counter() - t0:.1f}")
-    launches, eng, masks, first_spawn = phase_multi_crf(dev, crf_frames, gt_ids)
-    # time the frames after the first spawn: object slots track and fuse
-    steady_ms, _, eng2 = phase_timing(lambda: _multi_engine(dev), crf_frames, eng, masks,
-                                      tag="multi_timing", start=first_spawn + 1)
-    del eng
-    phase_idle_slot(eng2, steady_ms)
-    del eng2
-    phase_gt_masks(dev, unique)
-    phase_parity_multi()
+    if "kernels" in groups:
+        kern = phase_kernels(dev, frames[0]["depth"], opts.baseline)
+    if "static" in groups:
+        launches_static, eng = phase_main_path(dev, frames, gt)
+        phase_timing(lambda: _engine(dev), frames, eng)
+        del eng
+        phase_parity()
 
+    if "multi" in groups:
+        t0 = time.perf_counter()
+        unique = make_multi_object_frames(cam, 12, masks=True)
+        gt_ids = [f["mask"] for f in unique]
+        crf_frames = [dict(unique[i % 12], mask=None, timestamp=i) for i in range(MULTI_FRAMES)]
+        _phase("frames", n=len(crf_frames), unique=len(unique), objects=3,
+               seconds=f"{time.perf_counter() - t0:.1f}")
+        launches_multi, eng, masks, first_spawn = phase_multi_crf(dev, crf_frames, gt_ids)
+        # time the frames after the first spawn: object slots track and fuse
+        steady_ms, _, eng2 = phase_timing(lambda: _multi_engine(dev), crf_frames, eng, masks,
+                                          tag="multi_timing", start=first_spawn + 1)
+        del eng
+        phase_idle_slot(eng2, steady_ms)
+        del eng2
+        phase_gt_masks(dev, unique)
+        phase_parity_multi()
+
+    if "loop" in groups:
+        launches, eng = phase_loop_path(dev, frames, gt)
+        phase_timing(lambda: _loop_engine(dev), frames[:LOOP_FRAMES], eng, tag="loop_timing")
+        phase_loop_blocks(eng)
+        del eng
+        drift_frames, drift_gt, _ = make_sequence(cam, 10, kind="still")
+        phase_loop_closure(dev, drift_frames, drift_gt)
+        phase_reloc(dev)
+        phase_loop_parity()
+
+    if opts.only:
+        return 0
     sources = {
         "bilateral_filter": ("cofusion_tpu_torch/csrc/bilateral.cu", "cofusion_tpu/ops/pallas_stencil.py:75"),
         "splat_window": ("cofusion_tpu_torch/csrc/splat_window.cu", "cofusion_tpu/ops/pallas_splat.py:116"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "launches_static": launches_static[name], **kern[name]}
+         "launches": launches[name], "launches_multi": launches_multi[name],
+         "launches_static": launches_static[name], **kern[name]}
         for name, (src, rep) in sources.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,12 @@
 """Command-line entry point of the port — cofusion_tpu/cli.py (the reference's
-MainController, headless) for the static and multi-model modes.
+MainController, headless) for the static and multi-model modes, with
+relocalisation and loop closure.
 
 Usage:
     python -m cofusion_tpu_torch -l log.klg -static -run -q -ep -em -exportdir out/
     python -m cofusion_tpu_torch -dir dataset/ -maskdir dataset/ -es -ep -em -exportdir out/
     python -m cofusion_tpu_torch -l log.klg -d 4.5 -es -exportdir out/     # CRF segmentation
+    python -m cofusion_tpu_torch -l log.klg -static -rl -cl -ep -exportdir out/
 
 Without `-static` the engine runs the multi-model mode with 4 model slots:
 ground-truth masks where the reader has them (`-maskdir`, or Mask####.png
@@ -15,7 +17,11 @@ the reader options -basedir, -cal, -maskdir, -depthdir, -colorprefix,
 -i, -confG, -confO, -offset, -keep, -a (accepted, no effect: every slot is
 allocated up front), -crfRGB, -crfDepth, -crfPos, -crfAppearance,
 -crfSmooth, -thNew, -k, -segMinNew, -segMaxNew, -run, -q, -s, -e, -ep, -em,
--es, -el, -exportdir.  The port adds `-device cuda|cpu`: the default is
+-es, -el, -exportdir; relocalisation `-rl` with its photometric gate `-pt`
+and keyframe threshold `-ft`; loop closure `-cl` with its gates `-ie`
+(residual), `-ic` (inlier count) and `-cv` (covariance); `-o`, open loop:
+no time window (time delta 2^30) and loop closure off whatever `-cl` says
+(MainController.cpp:328-329).  The port adds `-device cuda|cpu`: the default is
 cuda, and the run fails when CUDA is absent; `-device cpu` runs the
 kernels' plain PyTorch versions on the CPU.  The JAX CLI's other flags
 raise "not yet ported" with their ROADMAP item.  Frames are read by the
@@ -38,10 +44,8 @@ from cofusion_tpu_torch.utils.stopwatch import Stopwatch
 
 # flag -> ROADMAP item of the feature it needs
 NOT_PORTED = {
-    "-rl": "A12", "-pt": "A12", "-ft": "A12",
-    "-cl": "A13", "-ie": "A13", "-ic": "A13", "-cv": "A13",
     "-p": "A14", "-en": "A14", "-ev": "A14", "-checkpoint": "A14", "-resume": "A14",
-    "-or": "A14", "-o": "A14", "-fo": "A14", "-nso": "A14", "-ftf": "A14",
+    "-or": "A14", "-fo": "A14", "-nso": "A14", "-ftf": "A14",
     "-icl": "A14", "-f": "A14", "-r": "A14", "-fs": "A14",
 }
 
@@ -99,7 +103,7 @@ def build_from_args(argv: list[str]):
     p = Parse(argv)
     for flag, item in NOT_PORTED.items():
         if p.flag(flag):
-            raise SystemExit(f"{flag} is not yet ported (ROADMAP {item}; queue A12-A14)")
+            raise SystemExit(f"{flag} is not yet ported (ROADMAP {item})")
 
     base = p.arg("-basedir", "")
 
@@ -144,10 +148,11 @@ def build_from_args(argv: list[str]):
 
     cam = CameraConfig(width=width, height=height, fx=fx, fy=fy, cx=cx, cy=cy)
     static = p.flag("-static")
+    open_loop = p.flag("-o")
     cfg = CoFusionConfig(
         camera=cam,
         max_models=1 if static else 4,
-        time_delta=p.int_arg("-t", 200),
+        time_delta=(1 << 30) if open_loop else p.int_arg("-t", 200),
         max_surfels=p.int_arg("-ns", CoFusionConfig.max_surfels),
     )
     tracking = TrackingParams(icp_weight=p.float_arg("-i", 10.0), rgb_only=False)
@@ -156,9 +161,15 @@ def build_from_args(argv: list[str]):
         confidence_global=p.float_arg("-confG", 10.0),
         confidence_object=p.float_arg("-confO", 0.01),
         model_spawn_offset=p.int_arg("-offset", 22),
+        local_loop_err_thresh=p.float_arg("-ie", 5e-5),
+        local_loop_count_thresh=p.float_arg("-ic", 40000.0),
+        local_loop_cov_thresh=p.float_arg("-cv", 1e-5),
+        fern_photo_thresh=p.float_arg("-pt", 115.0),
+        fern_thresh=p.float_arg("-ft", 0.3095),
     )
     engine = CoFusion(
         cfg, tracking=tracking, fusion_params=fusion, enable_multi_model=not static,
+        enable_relocalization=p.flag("-rl"), close_loops=p.flag("-cl") and not open_loop,
         keep_models=p.flag("-keep"), device=p.arg("-device", "cuda"),
     )
     # CRF tuning flags (MainController.cpp:222-231); the -crf* values are

@@ -1,5 +1,5 @@
 """Configuration of the port — the fields of cofusion_tpu/config.py that the
-static and multi-model paths read, with the same names and defaults (tests/test_torch_config.py
+static and multi-model paths, relocalisation and loop closure read, with the same names and defaults (tests/test_torch_config.py
 holds them equal), so a configuration means the same thing in both packages.
 
 Reference parity (flag defaults of the reference):
@@ -90,6 +90,13 @@ class CoFusionConfig:
     crf_iterations: int = 10
     slic_iterations: int = 5
 
+    # --- loop closure
+    # deformation-graph nodes (dense normal equations are (12 G)^2) and the
+    # local loop's constraint sampling stride in pixels (consSample,
+    # Core/CoFusion.cpp:39-44)
+    deform_nodes: int = 256
+    cons_sample: int = 20
+
     # --- misc
     time_delta: int = 200   # active/inactive surfel window, ModelProjection.h:41
     max_log_frames: int = 8192   # on-device pose ring (frames)
@@ -167,3 +174,15 @@ class FusionParams:
     # consecutive unseen frames before an object model is deactivated
     # (1 reproduces the reference's first-miss inactivation, CoFusion.cpp:285)
     model_deactivate_count: int = 1
+    # relocalisation (Core/Ferns.cpp): least keyframe age for retrieval, the
+    # recovery ICP error gate (tuned for 80x60 fern maps), the photometric
+    # gate ('-pt') and the keyframe-add dissimilarity threshold ('-ft')
+    fern_min_age: int = 300
+    fern_icp_error_thresh: float = 3e-4
+    fern_photo_thresh: float = 115.0
+    fern_thresh: float = 0.3095
+    # local loop closure gates ('-cv', '-ie', '-ic'; the count is for
+    # 640x480 and scaled by resolution where it is used)
+    local_loop_cov_thresh: float = 1e-5
+    local_loop_err_thresh: float = 5e-5
+    local_loop_count_thresh: float = 40000.0

@@ -9,7 +9,10 @@ positional access works on both sides).
 
 Both engines keep the same state fields in the same order
 (engine.EngineState / ModelState, models.surfel_model.SurfelStore,
-ops.rasterize.SplatMap); the only difference is the tick, a host int here.
+ops.rasterize.SplatMap, ops.ferns.FernDB); the only difference is the
+tick, a host int here.  `fern_db` is a FernDB under relocalisation and a
+scalar placeholder otherwise, in both engines; a JAX database brings its
+own random probes across (ROADMAP C9).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 
 from cofusion_tpu_torch.engine import EngineState, ModelState
 from cofusion_tpu_torch.models.surfel_model import SurfelStore
+from cofusion_tpu_torch.ops.ferns import FernDB
 from cofusion_tpu_torch.ops.rasterize import SplatMap
 
 
@@ -49,7 +53,8 @@ def state_from_numpy(tree, device: str | torch.device = "cpu") -> EngineState:
         store_from_numpy(models[1], device),
         *(_tensor(a, device) for a in models[2:]),
     )
-    rest = [_tensor(a, device) for a in tree[2:-1]]
+    rest = [fern_db_from_numpy(a, device) if i == _FERN else _tensor(a, device)
+            for i, a in enumerate(tree[2:-1], start=2)]
     pred = SplatMap(*(_tensor(a, device) for a in tree[-1]))
     return EngineState(m, int(np.asarray(tree[1])), *rest, pred)
 
@@ -62,5 +67,23 @@ def state_to_numpy(state: EngineState) -> EngineState:
         store_to_numpy(models.stable),
         *(_numpy(a) for a in models[2:]),
     )
-    rest = [_numpy(a) for a in state[2:-1]]
+    rest = [fern_db_to_numpy(a) if i == _FERN else _numpy(a)
+            for i, a in enumerate(state[2:-1], start=2)]
     return EngineState(m, np.int32(state.tick), *rest, SplatMap(*(_numpy(a) for a in state.pred)))
+
+
+_FERN = EngineState._fields.index("fern_db")
+
+
+def fern_db_from_numpy(tree, device: str | torch.device = "cpu"):
+    """FernDB from a tuple of numpy arrays in FernDB field order, or the
+    scalar placeholder of an engine without relocalisation."""
+    if isinstance(tree, tuple):
+        return FernDB(*(_tensor(a, device) for a in tree))
+    return _tensor(tree, device)
+
+
+def fern_db_to_numpy(db):
+    if isinstance(db, FernDB):
+        return FernDB(*(_numpy(a) for a in db))
+    return _numpy(db)

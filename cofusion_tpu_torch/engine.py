@@ -1,24 +1,31 @@
 """The CoFusion engine — PyTorch counterpart of cofusion_tpu/engine.py for the
 `-static` (ElasticFusion) mode and the multi-model mode with ground-truth
 masks or motion-cue CRF segmentation (Core/CoFusion.cpp processFrame
-:171-524, spawnObjectModel :588-597, inactivateModel :612-626).  No
-relocalisation, loop closure or ground-truth poses (ROADMAP A12-A14).
+:171-524, spawnObjectModel :588-597, inactivateModel :612-626), with fern
+relocalisation ('-rl', CoFusion.cpp:301-338) and local loop closure with
+the deformation graph ('-cl', CoFusion.cpp:387-459).  No ground-truth
+poses (ROADMAP A14).
 
 One frame (`_step`): bilateral filter (CUDA kernel) -> intensity -> FillIn
 of the carried prediction -> frame/model pyramids -> masked batched tracking
 of all M model slots (SO(3) pre-align, 3-level ICP+RGB Gauss-Newton) ->
 segmentation and the model lifecycle (spawn, unseen deactivation, smart
-delete, slot recycling) -> per-slot fuse/clean (z-buffer render, fuse,
-overlay, clean, expel into the stable tier) -> window splat (CUDA kernel)
-of the next frame's prediction over all slots at once.  Frame 1 takes
-`_init_state`.
+delete, slot recycling) -> with '-rl', lost detection, fern keyframing and
+recovery -> with '-cl', the global model's local loop (three window
+splats: the active view and both tiers' inactive views) and the
+deformation of its map and pose log -> per-slot fuse/clean (z-buffer
+render, fuse, overlay, clean, expel into the stable tier) -> window splat
+(CUDA kernel) of the next frame's prediction over all slots at once.
+Frame 1 takes `_init_state`.
 
 The host loop is asynchronous: `process_frame` uploads the frame with a
 non-blocking copy and queues the step; nothing in it reads a device value
 (no `.item()`, no host branch on a device bool, no data-dependent shape).
 Model spawns and deaths flip `active` flags on the device; where the JAX
-engine skips an idle slot's fuse/clean with `lax.cond`, the port computes
-it and selects the untouched slot back with `torch.where`.  The CRF path
+engine skips an idle slot's fuse/clean, the fern eviction scan or the
+deformation with `lax.cond`, the port computes the branch and selects its
+result (or the untouched input) with `torch.where`: with '-cl' the whole
+deformation runs on every frame.  The CRF path
 reads the active flags back every 4 frames through a pinned double buffer,
 one cadence late, so no frame waits on the device.  `stats()` and the
 pose-log readers synchronise on demand.
@@ -43,9 +50,12 @@ from cofusion_tpu_torch.config import (
 from cofusion_tpu_torch.device import resolve_device, upload
 from cofusion_tpu_torch.models import surfel_model as sm
 from cofusion_tpu_torch.models.surfel_model import SurfelStore
+from cofusion_tpu_torch.ops import deformation as df
+from cofusion_tpu_torch.ops import ferns as fern_ops
 from cofusion_tpu_torch.ops import fillin as fi
 from cofusion_tpu_torch.ops import fusion as fu
 from cofusion_tpu_torch.ops import lie
+from cofusion_tpu_torch.ops import local_loop as ll
 from cofusion_tpu_torch.ops import odometry as od
 from cofusion_tpu_torch.ops import preprocess as pp
 from cofusion_tpu_torch.ops import rasterize as rz
@@ -85,7 +95,7 @@ class EngineState(NamedTuple):
     prev_filtered: torch.Tensor  # (H, W) previous filtered depth
     prev_mask: torch.Tensor      # (H, W) int32 previous frame's segmentation
     pose_history: torch.Tensor   # (LOG_CAP, M, 4, 4) on-device pose ring
-    fern_db: torch.Tensor        # () placeholder (relocalisation not ported)
+    fern_db: object              # FernDB with '-rl', else a () int32 placeholder
     lost: torch.Tensor           # () bool tracking-lost flag
     unstable_count: torch.Tensor  # () int32
     mask_history: torch.Tensor   # (R, H, W) uint8 segmentation ring ('-es')
@@ -102,7 +112,7 @@ class FrameOutputs(NamedTuple):
     surfel_counts: torch.Tensor  # (M,)
     active: torch.Tensor         # (M,) bool, a buffer of its own (read back)
     spawned: torch.Tensor        # () bool — a new model was created this frame
-    loop_closed: torch.Tensor    # () bool
+    loop_closed: torch.Tensor    # () bool — a loop closure deformed the map
 
 
 def _render_pred_init(store, poses, conf_threshold, tick, time_delta, depth_cutoff, *, cam, cfg):
@@ -159,6 +169,176 @@ def _empty_stores(M: int, capacity: int, dev) -> SurfelStore:
     )
 
 
+def _with_slot0(stacked: SurfelStore, one: SurfelStore) -> SurfelStore:
+    """`stacked` with slot 0 replaced by `one`: a new leading axis for one
+    model; with more slots, copied in place into the stacked leaves."""
+    if stacked.count.shape[0] == 1:
+        return _stack([one])
+    for a, b in zip(stacked, one):
+        a[0].copy_(b)
+    return stacked
+
+
+FERN_FACTOR = 8  # fern maps at 1/8 resolution
+
+
+class FernCandidate(NamedTuple):
+    """A healthy fern match: a constraint source for the deformation."""
+
+    ok: torch.Tensor     # () bool
+    est: torch.Tensor    # (4, 4) the pose it recovers
+    src: torch.Tensor    # (K, 3) constraints (fern_ops.sample_constraints)
+    tgt: torch.Tensor
+    valid: torch.Tensor  # (K,)
+    time: torch.Tensor   # () the keyframe's tick, where its constraints anchor
+
+
+def _relocalise(state: EngineState, A0, pose0, rgb, filtered, cam, cfg, tparams, fparams, tick):
+    """Lost detection, fern keyframing and recovery of the global model
+    (CoFusion.cpp:301-338, Ferns).  `A0` is its final GN system, `pose0` its
+    tracked pose.  Returns (pose0, lost, unstable_count, fern_db,
+    FernCandidate)."""
+    dev = rgb.device
+    depth_cutoff = fparams["depth_cutoff"]
+    # lost: a covariance axis (diag A^-1) above threshold for > 10 frames in
+    # a row; A scales ~1/stride^2 with the level-0 GN stride, so does the bar
+    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    cov = torch.diagonal(torch.linalg.inv_ex(A0 + 1e-9 * eye6, check_errors=False).inverse)
+    unstable = (cov > 1e-4 * float(cfg.gn_stride_l0) ** 2).any()
+    unstable_count = torch.where(unstable, state.unstable_count + 1, 0).to(torch.int32)
+    lost = state.lost | (unstable_count > 10)
+
+    f = FERN_FACTOR
+    cam_s = CameraConfig(width=cam.width // f, height=cam.height // f,
+                         fx=cam.fx / f, fy=cam.fy / f, cx=cam.cx / f, cy=cam.cy / f)
+    rgb_s, d_s = rgb, filtered
+    for _ in range(3):
+        rgb_s = (rgb_s[0::2, 0::2] + rgb_s[1::2, 0::2] + rgb_s[0::2, 1::2] + rgb_s[1::2, 1::2]) * 0.25
+        d_s = d_s[0::2, 0::2]
+    vm_s, va_s = pp.compute_vmap(d_s, cam_s, depth_cutoff)
+    nm_s, _ = pp.compute_nmap(vm_s, va_s)
+
+    # keyframes while healthy (the reference's processFerns is FIXME-disabled,
+    # CoFusion.cpp:496; the machinery is meant to run)
+    db, _ = fern_ops.add_frame(state.fern_db, rgb_s, vm_s, nm_s, pose0, tick,
+                               threshold=fparams["fern_thresh"], allow=~lost)
+    # retrieval, then 20 ICP iterations at fern resolution (its 3e-4 error
+    # gate needs them converged)
+    match = fern_ops.find_frame(db, rgb_s, vm_s, tick, min_age=fparams["fern_min_age"])
+    fern_cfg = cfg.replace(use_so3=False, use_pyramid=False, gn_iters=(20, 0, 0), camera=cam_s,
+                           gn_stride_l0=1)
+    fern_tp = TrackingParams(icp_weight=100.0, min_correspondences=tparams.min_correspondences)
+    intensity_s = pp.rgb_to_intensity(rgb_s)
+    fern_frame = od.build_frame_pyramid(torch.where(va_s, d_s, 0.0), intensity_s, cam_s, fern_cfg,
+                                        depth_cutoff)
+    fern_model = od.build_model_pyramid(
+        match.fern_verts, match.fern_norms, match.fern_verts[..., 2] > 0,
+        pp.rgb_to_intensity(match.fern_rgb), match.fern_pose, cam_s, fern_cfg,
+    )
+    fern_res = od.get_incremental_transformation(
+        match.fern_pose, fern_frame, fern_model, intensity_s, cam_s, fern_cfg, fern_tp
+    )
+    est = fern_res.pose
+    photo = fern_ops.photometric_check(db, vm_s, rgb_s, est, match.fern_pose, match.fern_rgb,
+                                       cam_s, depth_cutoff)
+    # the inlier bars 1400/2400 are for 80x60 = 4800 probes
+    icp_thresh = torch.where(lost, 1400.0, 2400.0) * (cam_s.width * cam_s.height / 4800.0)
+    good = (
+        match.found
+        & (fern_res.icp_error < fparams["fern_icp_thresh"])
+        & (fern_res.icp_count > icp_thresh)
+        & (photo < fparams["fern_photo_thresh"])
+    )
+    src, tgt, ok = fern_ops.sample_constraints(db, vm_s, pose0, est, depth_cutoff)
+    # fern constraints anchor at the matched KEYFRAME's tick
+    # (Deformation.cpp:75-180), so the time-nearest nodes are the old ones
+    kf = torch.clamp(match.keyframe, 0, db.codes.shape[0] - 1).reshape(1).to(torch.int64)
+    cand = FernCandidate(ok=good & ~lost, est=est, src=src, tgt=tgt, valid=ok,
+                         time=db.src_time.index_select(0, kf)[0].to(torch.float32))
+
+    recover = lost & good
+    pose0 = torch.where(recover, est, pose0)
+    return pose0, lost & ~recover, torch.where(recover, 0, unstable_count), db, cand
+
+
+def _close_loop(state: EngineState, store0, stable0, pose0, conf0, lost, fern, cam, cfg, tparams,
+                fparams, tick):
+    """The global model's local loop and the deformation it feeds
+    (CoFusion.cpp:387-459).  A healthy fern match (`fern`, None without
+    '-rl') takes priority over the local loop as the constraint source of
+    the same optimiser.  The deformation (graph solve, both tiers warped,
+    timestamps refreshed, stable surfels brought back to the active tier,
+    the pose log warped) is computed on every frame and applied where the
+    loop is accepted and the solve is sound.  Updates `state.pose_history`
+    in place.  Returns (store0, stable0, pose0, closed)."""
+    dev = pose0.device
+    td, dc = fparams["time_delta"], fparams["depth_cutoff"]
+    tickf = float(tick)
+    # the ACTIVE view at the post-tracking pose (predict() right before the
+    # block, CoFusion.cpp:347) and the INACTIVE one: both tiers' surfels
+    # outside the window, z-merged
+    act = rz.splat_predict(store0, pose0, cam, cfg, state.tick, td, dc, conf0)
+    old = rz.splat_merge(
+        rz.splat_predict(store0, pose0, cam, cfg, state.tick, td, dc, conf0, active_window=False),
+        rz.splat_predict(stable0, pose0, cam, cfg, state.tick, td, dc, conf0, active_window=False),
+    )
+    # the gates are tuned for 640x480: inlier counts scale with the pixel
+    # count, the covariance with its inverse
+    npx_scale = (cam.width * cam.height) / (640.0 * 480.0)
+    res = ll.local_loop(
+        old, pose0, act, cam, cfg, tparams, state.tick, td, dc, conf0,
+        fparams["loop_cov_thresh"] / npx_scale, fparams["loop_err_thresh"],
+        fparams["loop_count_thresh"] * npx_scale,
+    )
+    accepted = res.accepted & ~lost & (res.num_constraints >= 3)
+    src, tgt, valid, est, times = res.src, res.tgt, res.cons_valid, res.est_pose, None
+    C = src.shape[0]
+    if fern is not None:
+        C = max(C, fern.src.shape[0])
+
+        def pick(a, b):
+            pad = lambda x: torch.cat([x, x.new_zeros((C - x.shape[0],) + x.shape[1:])])
+            return torch.where(fern.ok, pad(a), pad(b))
+
+        src, tgt, valid = pick(fern.src, src), pick(fern.tgt, tgt), pick(fern.valid, valid)
+        est = torch.where(fern.ok, fern.est, est)
+        times = torch.where(fern.ok, fern.time, tickf).expand(C)
+        accepted = fern.ok | accepted
+    if times is None:
+        times = torch.full((C,), tickf, device=dev)
+
+    # graph nodes over the WHOLE map's time range (Deformation.cpp:207):
+    # the stable tier first (old times), then the active tier
+    graph = df.sample_graph(sm.concat_stores(stable0, store0), cfg.deform_nodes)
+    graph, err = df.optimize(graph, src, times, tgt, valid)
+    ok = torch.isfinite(err)
+    if fern is not None:
+        # a fern match takes the reference's meanConsError gate
+        # (Deformation.cpp:134); a local match applies as its !fernMatch branch
+        mce = df.mean_constraint_error(graph, src, times, tgt, valid)
+        ok = ok & (~fern.ok | (mce < 3e-4))
+    warped_a = df.refresh_timestamps(df.apply_to_surfels(graph, store0), est, cam, tick, dc, conf0)
+    warped_s = df.refresh_timestamps(df.apply_to_surfels(graph, stable0), est, cam, tick, dc, conf0)
+    # stable surfels whose stamps were refreshed are back in the window:
+    # they move to the active tier (one expel block; overflow drops)
+    fresh = warped_s.valid & (warped_s.last_time >= tickf)
+    stable_new, blk = sm.expel_split(warped_s, warped_s.valid, fresh, cfg.expel_block)
+    active_new = sm.append(warped_a, blk, blk.valid)
+
+    closed = accepted & ok
+    # the logged trajectory warps through the graph too (applyGraphToPoses,
+    # DeformationGraph.cpp:89-116): ring slot j last held tick
+    # (tick - 1) - ((tick - 2 - j) mod cap); unwritten slots warp to junk
+    # that is never read
+    cap = cfg.max_log_frames
+    j = torch.arange(cap, device=dev)
+    hist_t = ((tick - 1) - torch.remainder(tick - 2 - j, cap)).to(torch.float32)
+    hist0 = state.pose_history[:, 0]
+    hist0.copy_(torch.where(closed, df.apply_to_poses(graph, hist0, hist_t), hist0))
+    return (_select(closed, active_new, store0), _select(closed, stable_new, stable0),
+            torch.where(closed, est, pose0), closed)
+
+
 # ---------------------------------------------------------------------------
 # the per-frame step
 
@@ -175,6 +355,8 @@ def _step(
     tparams: TrackingParams,
     sparams: SegmentationParams | None = None,
     use_crf: bool = False,
+    use_reloc: bool = False,
+    close_loops: bool = False,
 ):
     """One frame (CoFusion::processFrame).
 
@@ -182,8 +364,11 @@ def _step(
     outlier_coeff, icp_weight, time_delta, weight_multiplier; with
     max_models > 1 also the lifecycle's spawn_offset, conf_object,
     deactivate_count, keep_data, and the host's
-    GT-mask nominations new_slot, allow_new, gt_masks.  `use_crf` selects
-    the CRF segmentation over the slot-id `mask`.
+    GT-mask nominations new_slot, allow_new, gt_masks; with `use_reloc`
+    ('-rl') fern_min_age, fern_icp_thresh, fern_photo_thresh, fern_thresh;
+    with `close_loops` ('-cl') loop_cov_thresh, loop_err_thresh,
+    loop_count_thresh.  `use_crf` selects the CRF segmentation over the
+    slot-id `mask`.
 
     The step consumes its input state: the stores, the stable tier and the
     pose and mask rings are updated in place (the JAX engine donates its
@@ -349,10 +534,6 @@ def _step(
         eye4 = torch.eye(4, dtype=new_pose.dtype, device=dev)[None]
         new_pose = torch.where(rs[:, None, None], eye4, new_pose)
         new_conf_threshold = torch.where(rs, fparams["conf_object"], new_conf_threshold)
-        # --- fuse + clean; a just-spawned slot counts as motionless (its
-        # velocity weight is the wmult=100 bootstrap)
-        prev_pose_eff = torch.where(is_new_slot[:, None, None], new_pose, models.pose)
-        weight = [_fusion_weight(new_pose[m], prev_pose_eff[m], wmult[m]) for m in range(M)]
         new_age = torch.where(is_new_slot, 0, models.age) + new_active.to(torch.int32)
     else:
         # the global model alone: always active, fused at the run's depth cutoff
@@ -361,14 +542,41 @@ def _step(
         model_max_depth = torch.full((M,), depth_cutoff, dtype=torch.float32, device=dev)
         new_unseen = models.unseen
         new_cooldown = models.spawn_cooldown
-        prev_pose_eff = models.pose
-        weight = [_fusion_weight(new_pose[0], models.pose[0], fparams["weight_multiplier"])]
         new_age = models.age + new_active.to(torch.int32)
 
+    # --- relocalisation ('-rl'): the global model's pose may be recovered;
+    # every slot's fusion pauses while lost (CoFusion.cpp:463)
+    fern_db, lost, unstable_count, fern = state.fern_db, state.lost, state.unstable_count, None
+    if use_reloc:
+        pose0, lost, unstable_count, fern_db, fern = _relocalise(
+            state, res.A[0], new_pose[0], rgb, filtered, cam, cfg, tparams, fparams, tick
+        )
+        new_pose = _with_global(pose0, new_pose[1:])
+        active_fuse = active_fuse & ~lost
+
+    # --- local loop closure and deformation of the global model ('-cl')
+    loop_closed = torch.zeros((), dtype=torch.bool, device=dev)
+    if close_loops:
+        store0, stable0, pose0, loop_closed = _close_loop(
+            state, _unbatch(models_store), _unbatch(models_stable), new_pose[0],
+            models.conf_threshold[0], lost, fern, cam, cfg, tparams, fparams, tick,
+        )
+        models_store = _with_slot0(models_store, store0)
+        models_stable = _with_slot0(models_stable, stable0)
+        new_pose = _with_global(pose0, new_pose[1:])
+
+    # --- fuse + clean; a just-spawned slot counts as motionless (its
+    # velocity weight is the wmult=100 bootstrap)
+    if multi:
+        prev_pose_eff = torch.where(is_new_slot[:, None, None], new_pose, models.pose)
+        weight = [_fusion_weight(new_pose[m], prev_pose_eff[m], wmult[m]) for m in range(M)]
+    else:
+        prev_pose_eff = models.pose
+        weight = [_fusion_weight(new_pose[0], models.pose[0], fparams["weight_multiplier"])]
     new_stores, new_stables, imap_b = _fuse_clean_all(
         models_store, models_stable, new_pose, weight, models.model_id, models.conf_threshold,
         active_fuse, model_max_depth, depth, filtered, rgb, mask if multi else None,
-        cam, cfg, tick, fparams,
+        cam, cfg, tick, fparams, global_may_idle=use_reloc,
     )
     # the next frame's prediction: one batched window splat over the
     # post-fuse renders, confidence-gated per model (splat.vert:58)
@@ -402,9 +610,9 @@ def _step(
         prev_filtered=filtered,
         prev_mask=mask,
         pose_history=state.pose_history,
-        fern_db=state.fern_db,
-        lost=state.lost,
-        unstable_count=state.unstable_count,
+        fern_db=fern_db,
+        lost=lost,
+        unstable_count=unstable_count,
         mask_history=state.mask_history,
         pred=pred_new,
     )
@@ -416,7 +624,7 @@ def _step(
         surfel_counts=new_stores.count + torch.clamp(new_stables.count, max=new_stables.capacity),
         active=new_active.clone(),
         spawned=has_new,
-        loop_closed=torch.zeros((), dtype=torch.bool, device=dev),
+        loop_closed=loop_closed,
     )
     return new_state, outputs
 
@@ -434,6 +642,7 @@ def _empty_imap(H: int, W: int, dev) -> rz.IndexMap:
 def _fuse_clean_all(
     stores, stables, new_pose, weight, model_ids, conf_thresholds, active_fuse,
     model_max_depth, depth, filtered, rgb, mask, cam, cfg, tick: int, fparams,
+    global_may_idle: bool = False,
 ):
     """Per-model fuse + clean (CoFusion.cpp:463-489: predictIndices -> fuse
     -> overlay in place of the second predictIndices -> clean), plus the
@@ -449,7 +658,8 @@ def _fuse_clean_all(
     or smart-deleted) is computed all the same and selected back on the
     device: the untouched store, an empty expel block and an empty index
     map (the JAX engine skips it with `lax.cond`; a host branch here would
-    read `active_fuse` back).  Slot 0, the global model, always fuses.
+    read `active_fuse` back).  Slot 0, the global model, always fuses,
+    unless `global_may_idle` (relocalisation: fusion pauses while lost).
     With more than one slot the results are written back into the stacked
     leaves in place; the global model alone returns its new store.
     `weight` is a list of per-slot 0-d weights."""
@@ -459,7 +669,7 @@ def _fuse_clean_all(
     time_delta = fparams["time_delta"]
     A = int(stores.px.shape[1])
     A_obj = min(cfg.object_active_capacity, A)
-    if M > 1:
+    if M > 1 or global_may_idle:
         empty_blk = sm.empty_store(cfg.expel_block, dev)
         empty_imap = _empty_imap(H, W, dev)
 
@@ -493,7 +703,7 @@ def _fuse_clean_all(
             (cleaned.last_time > 0) & ((float(tick) - cleaned.last_time) > float(time_delta)),
             cfg.expel_block,
         )
-        if m > 0:
+        if m > 0 or global_may_idle:
             on = active_fuse[m]
             out = _select(on, out, store)
             blk = _select(on, blk, empty_blk)
@@ -589,10 +799,6 @@ class CoFusion:
         *,
         device: str | torch.device,
     ):
-        if enable_relocalization:
-            raise NotImplementedError("relocalisation is not yet ported (ROADMAP A12)")
-        if close_loops:
-            raise NotImplementedError("loop closure is not yet ported (ROADMAP A13)")
         if frame_to_frame_rgb:
             raise NotImplementedError("'-ftf' frame-to-frame RGB is not yet ported (ROADMAP A14)")
         self.cfg = cfg
@@ -602,6 +808,8 @@ class CoFusion:
         self.fusion = fusion_params or FusionParams()
         self.segmentation = SegmentationParams()
         self.enable_multi_model = enable_multi_model
+        self.enable_relocalization = enable_relocalization
+        self.close_loops = close_loops
         # '-keep': keep deactivated models' maps unconditionally; otherwise
         # smart delete keeps only mature ones (CoFusion.cpp:612-626)
         self.keep_models = keep_models
@@ -645,6 +853,13 @@ class CoFusion:
             conf_object=float(f.confidence_object),
             deactivate_count=int(f.model_deactivate_count),
             keep_data=bool(keep_models),
+            fern_min_age=int(f.fern_min_age),
+            fern_icp_thresh=float(f.fern_icp_error_thresh),
+            fern_photo_thresh=float(f.fern_photo_thresh),
+            fern_thresh=float(f.fern_thresh),
+            loop_cov_thresh=float(f.local_loop_cov_thresh),
+            loop_err_thresh=float(f.local_loop_err_thresh),
+            loop_count_thresh=float(f.local_loop_count_thresh),
         )
 
     # ------------------------------------------------------------------
@@ -692,7 +907,11 @@ class CoFusion:
             prev_filtered=filtered,
             prev_mask=mask,
             pose_history=eye4.expand(cfg.max_log_frames, M, 4, 4).clone(),
-            fern_db=torch.zeros((), dtype=torch.int32, device=dev),
+            fern_db=(
+                fern_ops.new_db(cam, max_depth_mm=fp.depth_cutoff * 1000.0, device=dev)
+                if self.enable_relocalization
+                else torch.zeros((), dtype=torch.int32, device=dev)
+            ),
             lost=torch.zeros((), dtype=torch.bool, device=dev),
             unstable_count=torch.zeros((), dtype=torch.int32, device=dev),
             mask_history=torch.zeros(
@@ -790,6 +1009,7 @@ class CoFusion:
                     self.state, rgb, depth, mask, fparams,
                     cam=self.cam, cfg=self.cfg, tparams=self.tracking,
                     sparams=self.segmentation, use_crf=use_crf,
+                    use_reloc=self.enable_relocalization, close_loops=self.close_loops,
                 )
             self._last_outputs = outputs
             self._timestamps.append(ts)

@@ -50,6 +50,15 @@ class SurfelStore(NamedTuple):
     def capacity(self) -> int:
         return self.px.shape[-1]
 
+    # stacked (N, 3) views, for the loop closure's warps and the tests
+    @property
+    def pos(self) -> torch.Tensor:
+        return torch.stack([self.px, self.py, self.pz], dim=-1)
+
+    @property
+    def normal(self) -> torch.Tensor:
+        return torch.stack([self.nx, self.ny, self.nz], dim=-1)
+
 
 def pack_store(pos, normal, color, radius, conf, init_time, last_time, valid, count) -> SurfelStore:
     """Build a store from stacked (N, 3) attribute arrays."""
@@ -60,6 +69,14 @@ def pack_store(pos, normal, color, radius, conf, init_time, last_time, valid, co
         radius=radius, conf=conf, init_time=init_time, last_time=last_time,
         valid=valid, count=count,
     )
+
+
+def with_pos(store: SurfelStore, pos: torch.Tensor) -> SurfelStore:
+    return store._replace(px=pos[..., 0], py=pos[..., 1], pz=pos[..., 2])
+
+
+def with_normal(store: SurfelStore, normal: torch.Tensor) -> SurfelStore:
+    return store._replace(nx=normal[..., 0], ny=normal[..., 1], nz=normal[..., 2])
 
 
 def empty_store(capacity: int, device: torch.device) -> SurfelStore:
@@ -117,6 +134,18 @@ def append(store: SurfelStore, new: SurfelStore, new_mask: torch.Tensor) -> Surf
     out = {f: put(getattr(store, f), getattr(new, f)) for f in _FLOAT_FIELDS}
     out["valid"] = torch.arange(n, device=dest.device) < new_count
     return SurfelStore(count=new_count.to(torch.int32), **out)
+
+
+def concat_stores(a: SurfelStore, b: SurfelStore) -> SurfelStore:
+    """`a` then `b` in one store of capacity a + b, the valid rows packed to
+    the front in order: the whole two-tier map in (roughly) time order when
+    `a` is the stable tier (the deformation graph samples its nodes from
+    it)."""
+    cat = SurfelStore(
+        *(torch.cat([x, y]) for x, y in zip(a[:-1], b[:-1])),
+        count=torch.zeros((), dtype=torch.int32, device=a.px.device),
+    )
+    return compact(cat, cat.valid)
 
 
 def expel_split(

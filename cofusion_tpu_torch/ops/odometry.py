@@ -247,6 +247,49 @@ def build_frame_pyramid(
     )
 
 
+def build_frame_pyramid_from_maps(
+    vmap_c: torch.Tensor,
+    nmap_c: torch.Tensor,
+    valid: torch.Tensor,
+    intensity: torch.Tensor,
+    cam: CameraConfig,
+    cfg: CoFusionConfig,
+    max_depth_rgb: float = 6.0,
+) -> FramePyramid:
+    """FramePyramid from PREDICTED camera-frame maps instead of a depth frame:
+    the current side of the model-to-model odometry (the splat-prediction
+    initICP variant, RGBDOdometry.cpp:120-141)."""
+    levels = cfg.pyramid_levels
+    vms = [torch.where(valid[..., None], vmap_c, 0.0)]
+    nms = [torch.where(valid[..., None], nmap_c, 0.0)]
+    oks = [valid]
+    for _ in range(levels - 1):
+        vm, ok_v = pp.resize_map_half(vms[-1], oks[-1])
+        nm, _ = pp.resize_map_half(nms[-1], oks[-1], normalize=True)
+        vms.append(vm)
+        nms.append(nm)
+        oks.append(ok_v)
+
+    depths = [pp.vertices_to_depth(vmap_c, valid, max_depth_rgb)]
+    intens = [intensity]
+    for _ in range(levels - 1):
+        depths.append(pp.pyr_down_gauss(depths[-1]))
+        intens.append(pp.pyr_down_gauss(intens[-1]))
+
+    dxs, dys, rgb_oks = [], [], []
+    for lvl in range(levels):
+        dx, dy = pp.sobel_gradients(intens[lvl])
+        dxs.append(dx)
+        dys.append(dy)
+        Hl, Wl = intens[lvl].shape
+        rgb_oks.append(_window_ok(intens[lvl] > 0) & _border(Hl, Wl, intens[lvl].device))
+
+    return FramePyramid(
+        vmap=tuple(vms), nmap=tuple(nms), valid=tuple(oks), depth=tuple(depths),
+        intensity=tuple(intens), didx=tuple(dxs), didy=tuple(dys), rgb_ok=tuple(rgb_oks),
+    )
+
+
 def build_model_pyramid(
     pred_vmap: torch.Tensor,
     pred_nmap: torch.Tensor,
@@ -655,6 +698,28 @@ def track_models(
         rgb_count=st["rgb_cnt"],
         so3_error=so3_err.expand(M),
     )
+
+
+def get_incremental_transformation(
+    pose_prev: torch.Tensor,
+    frame: FramePyramid,
+    model: ModelPyramid,
+    so3_ref_intensity: torch.Tensor,
+    cam: CameraConfig,
+    cfg: CoFusionConfig,
+    params: TrackingParams,
+) -> OdometryResult:
+    """One model's full solve against a whole (unmasked) frame: the JAX
+    package's unbatched tracker, as a one-model `track_models` call.
+    `pose_prev` (4, 4); returns the OdometryResult with its model axis
+    dropped (pose (4, 4), A (6, 6), scalars)."""
+    res = track_models(
+        pose_prev[None], frame, tuple(v[None] for v in frame.valid),
+        tuple(v[None] for v in frame.rgb_ok),
+        ModelPyramid(*(tuple(lv[None] for lv in field) for field in model)),
+        so3_ref_intensity, cam, cfg, params,
+    )
+    return OdometryResult(*(a[0] for a in res))
 
 
 def icp_error_maps_b(

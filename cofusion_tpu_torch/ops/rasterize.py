@@ -99,10 +99,11 @@ def _project_store(store: SurfelStore, pose: torch.Tensor, cam: CameraConfig):
     return lx, ly, lz, lnx, lny, lnz, ui, vi, inb
 
 
-def _window_gate(store: SurfelStore, time, time_delta):
-    """The active time window (index_map.vert:48); the inactive render is loop
-    closure's (ROADMAP A13)."""
-    return (time - store.last_time) <= time_delta
+def _window_gate(store: SurfelStore, time, time_delta, active_window: bool):
+    """The active time window (index_map.vert:48), or with `active_window`
+    off its complement: the INACTIVE surfels the loop closure renders."""
+    age = time - store.last_time
+    return (age <= time_delta) if active_window else (age > time_delta)
 
 
 def _zkey_bits(capacity: int) -> int:
@@ -179,15 +180,17 @@ def predict_indices(
     time_delta,
     max_depth,
     conf_threshold=None,
+    active_window: bool = True,
 ) -> IndexMap:
     """Z-buffered 1x point render of the surfel map into the camera at `pose`.
     Gates: 0 < z <= max_depth and time - last_time <= time_delta
-    (index_map.vert:45-50); `conf_threshold` adds splat.vert:58's gate."""
+    (index_map.vert:45-50; > time_delta with `active_window` off);
+    `conf_threshold` adds splat.vert:58's gate."""
     H, W = cam.height, cam.width
     n = store.capacity
     lx, ly, lz, lnx, lny, lnz, ui, vi, inb = _project_store(store, pose, cam)
     ok = store.valid & (lz > 0) & (lz <= max_depth) & inb
-    ok = ok & _window_gate(store, time, time_delta)
+    ok = ok & _window_gate(store, time, time_delta, active_window)
     if conf_threshold is not None:
         ok = ok & (store.conf >= conf_threshold)
     lin = torch.where(ok, vi * W + ui, H * W)
@@ -208,6 +211,7 @@ def predict_indices_b(
     time_delta,
     max_depth: torch.Tensor,
     conf_threshold: torch.Tensor | None = None,
+    active_window: bool = True,
 ) -> IndexMap:
     """Batched `predict_indices` over the model axis (store leaves (M, N),
     poses (M, 4, 4), max_depth/conf_threshold (M,)): the model index folds
@@ -216,7 +220,7 @@ def predict_indices_b(
     H, W = cam.height, cam.width
     lx, ly, lz, lnx, lny, lnz, ui, vi, inb = _project_store(store, poses, cam)
     ok = store.valid & (lz > 0) & (lz <= max_depth[:, None]) & inb
-    ok = ok & _window_gate(store, time, time_delta)
+    ok = ok & _window_gate(store, time, time_delta, active_window)
     if conf_threshold is not None:
         ok = ok & (store.conf >= conf_threshold[:, None])
     m_iota = torch.arange(M, dtype=torch.int32, device=lz.device)[:, None]
@@ -308,11 +312,12 @@ def splat_from_imap(
 
 def splat_predict(
     store: SurfelStore, pose: torch.Tensor, cam: CameraConfig, cfg: CoFusionConfig,
-    time, time_delta, max_depth, conf_threshold,
+    time, time_delta, max_depth, conf_threshold, active_window: bool = True,
 ) -> SplatMap:
     """Surfel-disk splatting via windowed gather over the point render."""
     imap = predict_indices(
-        store, pose, cam, time, time_delta, max_depth, conf_threshold=conf_threshold
+        store, pose, cam, time, time_delta, max_depth, conf_threshold=conf_threshold,
+        active_window=active_window,
     )
     return splat_from_imap(imap, cam, cfg)
 
@@ -320,10 +325,31 @@ def splat_predict(
 def splat_predict_b(
     store: SurfelStore, poses: torch.Tensor, cam: CameraConfig, cfg: CoFusionConfig,
     time, time_delta, max_depth: torch.Tensor, conf_threshold: torch.Tensor,
+    active_window: bool = True,
 ) -> SplatMap:
     """Batched `splat_predict` (flat-index batched point render + batch-aware
     window splatting)."""
     imap = predict_indices_b(
-        store, poses, cam, time, time_delta, max_depth, conf_threshold=conf_threshold
+        store, poses, cam, time, time_delta, max_depth, conf_threshold=conf_threshold,
+        active_window=active_window,
     )
     return splat_from_imap(imap, cam, cfg)
+
+
+def splat_merge(a: SplatMap, b: SplatMap) -> SplatMap:
+    """Z-merge two predictions, the nearest valid hit winning (`a` on ties):
+    the per-tier renders of the two-tier map as one predicted view."""
+    za = torch.where(a.valid, a.vert_conf[..., 2], float("inf"))
+    zb = torch.where(b.valid, b.vert_conf[..., 2], float("inf"))
+    pick_a = za <= zb
+
+    def sel(x, y):
+        return torch.where(pick_a.reshape(pick_a.shape + (1,) * (x.dim() - pick_a.dim())), x, y)
+
+    return SplatMap(
+        image=sel(a.image, b.image),
+        vert_conf=sel(a.vert_conf, b.vert_conf),
+        normal_rad=sel(a.normal_rad, b.normal_rad),
+        time=sel(a.time, b.time),
+        valid=a.valid | b.valid,
+    )

@@ -43,10 +43,14 @@ def test_derived_capacities_match(kw):
 @pytest.mark.parametrize(
     "name,fields",
     [("CoFusionConfig", ["object_active_surfels", "superpixel_size", "crf_iterations", "slic_iterations"]),
-     ("FusionParams", ["confidence_object", "model_spawn_offset", "model_deactivate_count"])],
+     ("FusionParams", ["confidence_object", "model_spawn_offset", "model_deactivate_count"]),
+     ("CoFusionConfig", ["deform_nodes", "cons_sample"]),
+     ("FusionParams", ["fern_min_age", "fern_icp_error_thresh", "fern_photo_thresh", "fern_thresh",
+                       "local_loop_cov_thresh", "local_loop_err_thresh", "local_loop_count_thresh"])],
 )
 def test_multi_model_fields_present(name, fields):
-    """The multi-model path's fields exist in the port under the JAX names."""
+    """The multi-model path's, relocalisation's and loop closure's fields
+    exist in the port under the JAX names, with the JAX defaults."""
     port, ref = getattr(tcfg, name)(), getattr(jcfg, name)()
     for f in fields:
         assert getattr(port, f) == getattr(ref, f), f

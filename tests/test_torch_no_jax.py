@@ -39,7 +39,8 @@ def test_no_source_file_imports_jax():
     ["cofusion_tpu_torch", "cofusion_tpu_torch.engine", "cofusion_tpu_torch.cli",
      "cofusion_tpu_torch.convert", "cofusion_tpu_torch.utils.export",
      "cofusion_tpu_torch.io.synthetic", "cofusion_tpu_torch.io.readers",
-     "cofusion_tpu_torch.ops.segmentation", "chip_smoke"],
+     "cofusion_tpu_torch.ops.segmentation", "cofusion_tpu_torch.ops.ferns",
+     "cofusion_tpu_torch.ops.deformation", "cofusion_tpu_torch.ops.local_loop", "chip_smoke"],
 )
 def test_imports_with_jax_blocked(module):
     banned = ("jax", "cofusion_tpu")

@@ -286,3 +286,63 @@ def test_icp_error_maps_b_matches(moving_pair, masked_built, small_cam, tcam, st
     assert maps_t.shape == (3,) + small_cam.shape
     np.testing.assert_allclose(maps_t.numpy(), np.asarray(maps_j), rtol=RTOL, atol=ATOL)
     assert (np.asarray(maps_j)[1] > 0.005).mean() > 0.3
+
+
+# --- the loop closure's and relocalisation's one-model solves
+
+
+def test_frame_pyramid_from_maps_matches(pair, small_cam, tcam, tconf):
+    """The model-to-model odometry's current side, built from a predicted
+    view (the JAX-rendered prediction of frame 0)."""
+    cfg = pair[0]
+    image, vert_conf, normal_rad, _, valid = pair[3]
+    inten = np.array(jax.jit(jpp.rgb_to_intensity)(jnp.asarray(image[0])))
+    jf = jod.build_frame_pyramid_from_maps(
+        jnp.asarray(vert_conf[0, ..., :3]), jnp.asarray(normal_rad[0, ..., :3]),
+        jnp.asarray(valid[0]), jnp.asarray(inten), small_cam, cfg,
+    )
+    tf = tod.build_frame_pyramid_from_maps(
+        _t(vert_conf[0, ..., :3]), _t(normal_rad[0, ..., :3]), _t(valid[0]), _t(inten), tcam, tconf,
+    )
+    assert np.asarray(jf.valid[0]).mean() > 0.5
+    for field in tod.FramePyramid._fields:
+        for lvl, (t, j) in enumerate(zip(getattr(tf, field), getattr(jf, field))):
+            msg = f"{field}[{lvl}]"
+            if t.dtype == torch.bool:
+                np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=msg)
+            else:
+                np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=RTOL, atol=ATOL, err_msg=msg)
+
+
+@pytest.mark.parametrize("solve", ["local_loop", "fern"])
+def test_get_incremental_transformation_matches(pair, built, small_cam, tcam, tconf, solve):
+    """The unbatched JAX tracker against the port's one-model `track_models`
+    call, in the two configurations the engine runs it in: the local loop's
+    (no SO(3) pre-align, no GN stride) and the fern ICP's (20 ICP-only
+    iterations at level 0).  Pose within 1e-5 x max(1, condition / 1e2)
+    (ROADMAP C8)."""
+    cfg, _, _, _, so3_ref, gt_pose = pair
+    jf, tf, jm, tm = built
+    if solve == "local_loop":
+        kw, params = dict(use_so3=False, gn_stride_l0=1), dict()
+    else:
+        kw = dict(use_so3=False, use_pyramid=False, gn_iters=(20, 0, 0), gn_stride_l0=1)
+        params = dict(icp_weight=100.0)
+    jcfg, tcfg_ = cfg.replace(**kw), tconf.replace(**kw)
+    res_j = jod.get_incremental_transformation(
+        jnp.eye(4, dtype=jnp.float32), jf, jax.tree.map(lambda a: a[0], jm), jnp.asarray(so3_ref),
+        small_cam, jcfg, TrackingParams(**params),
+    )
+    res_t = tod.get_incremental_transformation(
+        torch.eye(4), tf, tod.ModelPyramid(*(tuple(lv[0] for lv in f) for f in tm)), _t(so3_ref),
+        tcam, tcfg_, tcfg.TrackingParams(**params),
+    )
+    assert res_t.pose.shape == (4, 4) and res_t.A.shape == (6, 6)
+    assert np.abs(np.asarray(res_j.pose)[:3, 3] - gt_pose[:3, 3]).max() < 5e-3
+    kappa = np.linalg.cond(res_t.A.double().numpy())
+    np.testing.assert_allclose(res_t.pose.numpy(), np.asarray(res_j.pose),
+                               atol=1e-5 * max(1.0, kappa / 1e2))
+    for f in ("icp_count", "rgb_count"):
+        np.testing.assert_allclose(float(getattr(res_t, f)), float(getattr(res_j, f)), rtol=1e-3,
+                                   err_msg=f)
+    np.testing.assert_allclose(float(res_t.icp_error), float(res_j.icp_error), rtol=1e-3)

@@ -309,3 +309,61 @@ def test_splat_from_imap_on_real_render(scene, small_cam, tcam, tconf):
             getattr(out, f).numpy()[same], np.asarray(getattr(ref, f))[same],
             rtol=RTOL, atol=ATOL, err_msg=f,
         )
+
+
+# --- the loop closure's inactive renders and the tier merge
+
+
+def _aged(store_j, store_np):
+    """The scene's store with every other surfel last updated 500 ticks
+    back: at time 2, window 200, half the map is INACTIVE."""
+    lt = np.array(store_np[12])
+    lt[::2] = np.where(np.asarray(store_np[13])[::2], -500.0, lt[::2])
+    aged_np = store_np[:12] + (lt,) + store_np[13:]
+    return store_j._replace(last_time=jnp.asarray(lt)), aged_np
+
+
+@pytest.mark.parametrize("active_window", [True, False])
+def test_predict_indices_window_matches(scene, small_cam, tcam, active_window):
+    store_j, store_np, pose = scene
+    aged_j, aged_np = _aged(store_j, store_np)
+    ref = jrz.predict_indices(aged_j, jnp.asarray(pose), small_cam, 2, 200, 4.5,
+                              conf_threshold=0.5, active_window=active_window)
+    out = trz.predict_indices(convert.store_from_numpy(aged_np), torch.from_numpy(pose), tcam, 2,
+                              200, 4.5, conf_threshold=0.5, active_window=active_window)
+    assert np.asarray(ref.valid).mean() > 0.3
+    _assert_imap(out, ref)
+    # every rendered surfel is on the asked side of the window
+    lt = out.last_time.numpy()[out.valid.numpy()]
+    assert ((2 - lt <= 200) == active_window).all()
+
+
+def test_splat_predict_inactive_matches(scene, small_cam, tcam, tconf):
+    store_j, store_np, pose = scene
+    aged_j, aged_np = _aged(store_j, store_np)
+    cfg = CoFusionConfig(camera=small_cam, max_models=1, max_surfels=1 << 17)
+    ref = jrz.splat_predict(aged_j, jnp.asarray(pose), small_cam, cfg, 2, 200, 4.5, 0.5,
+                            active_window=False)
+    out = trz.splat_predict(convert.store_from_numpy(aged_np), torch.from_numpy(pose), tcam, tconf,
+                            2, 200, 4.5, 0.5, active_window=False)
+    np.testing.assert_array_equal(out.valid.numpy(), np.asarray(ref.valid))
+    assert np.asarray(ref.valid).mean() > 0.3
+    vc_t, vc_j = out.vert_conf.numpy(), np.asarray(ref.vert_conf)
+    other = ~np.isclose(vc_t, vc_j, rtol=1e-4, atol=1e-5).all(-1)
+    assert np.all(_bucket_edge(vc_t[..., 2])[other] & _bucket_edge(vc_j[..., 2])[other])
+    assert other.mean() < 1e-3
+
+
+def test_splat_merge_exact(scene, small_cam):
+    """The nearer valid hit wins, the first on ties (pure selects: exact)."""
+    store_j, store_np, pose = scene
+    aged_j, _ = _aged(store_j, store_np)
+    cfg = CoFusionConfig(camera=small_cam, max_models=1, max_surfels=1 << 17)
+    a = jrz.splat_predict(aged_j, jnp.asarray(pose), small_cam, cfg, 2, 200, 4.5, 0.5)
+    b = jrz.splat_predict(aged_j, jnp.asarray(pose), small_cam, cfg, 2, 200, 4.5, 0.5,
+                          active_window=False)
+    ref = jrz.splat_merge(a, b)
+    out = trz.splat_merge(*(trz.SplatMap(*(torch.from_numpy(np.array(x)) for x in m)) for m in (a, b)))
+    for f, t, j in zip(trz.SplatMap._fields, out, ref):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=f)
+    assert 0 < np.asarray(a.valid).sum() < np.asarray(ref.valid).sum()

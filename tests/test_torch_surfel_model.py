@@ -98,3 +98,28 @@ def test_download_matches():
     dj, dt = jsm.download_masked(j), tsm.download_masked(t)
     for k in dj:
         np.testing.assert_array_equal(dt[k], dj[k])
+
+
+@pytest.mark.parametrize("counts", [(3000, 1000), (0, 2000), (4096, 4096)])
+def test_concat_stores_exact(counts):
+    """The loop closure's whole-map view: the stable tier (a ring whose valid
+    rows need not be a prefix) then the active tier, packed."""
+    rng = np.random.default_rng(3)
+    fa, va = _random_store(rng, 4096, counts[0])
+    fb, vb = _random_store(rng, 4096, counts[1])
+    va = va & (rng.random(4096) < 0.7)  # holes, as in the stable ring
+    ja, ta = _pair(fa, va, counts[0])
+    jb, tb = _pair(fb, vb, counts[1])
+    _assert_same(tsm.concat_stores(ta, tb), jsm.concat_stores(ja, jb))
+
+
+def test_with_pos_and_normal_exact():
+    rng = np.random.default_rng(4)
+    fields, valid = _random_store(rng, 512, 300)
+    j, t = _pair(fields, valid, 300)
+    pos = rng.normal(size=(512, 3)).astype(np.float32)
+    nrm = rng.normal(size=(512, 3)).astype(np.float32)
+    _assert_same(tsm.with_normal(tsm.with_pos(t, torch.from_numpy(pos)), torch.from_numpy(nrm)),
+                 jsm.with_normal(jsm.with_pos(j, jnp.asarray(pos)), jnp.asarray(nrm)))
+    np.testing.assert_array_equal(t.pos.numpy(), np.asarray(j.pos))
+    np.testing.assert_array_equal(t.normal.numpy(), np.asarray(j.normal))
