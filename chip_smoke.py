@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (cofusion_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--baseline DIR]
+    python3 chip_smoke.py [--baseline DIR] [--only GROUPS]
 
 Drives the port's paths through `CoFusion.process_frame`, after building
 every hand-written kernel from csrc/ and holding each against its plain
@@ -10,7 +10,9 @@ default capacity (2^20 surfels, 2^19 active), the multi-model path at the
 JAX package's bench workload (640x480, 4 model slots, 2^22 surfels a slot,
 CRF motion segmentation of 3 moving boxes, bench.py:60-99,124-127), and
 `-static -rl -cl` (fern relocalisation, local loop closure and the
-deformation graph at 256 nodes) at 640x480.
+deformation graph at 256 nodes) at 640x480; then the remaining surfaces:
+'-p' ground-truth poses, `render_views` (the '-en'/'-ev' exports),
+checkpoints and hot tuning.
 Phases (each prints one line of findings and raises on failure; nothing is
 caught, nothing falls back to the CPU):
 
@@ -35,8 +37,8 @@ caught, nothing falls back to the CPU):
   5. timing       the same 30 frames again on a new engine, without the sync
                   check: frames 3-30 timed as one window (host enqueue time
                   and synchronised wall time per frame); poses and map
-                  bit-identical to phase 4's run (determinism); then 2 more
-                  frames under torch.profiler: kernel launches and device
+                  bit-identical to phase 4's run (determinism); then 1 more
+                  frame under torch.profiler: kernel launches and device
                   busy ms per frame, and the device's idle share
   6. parity       12-frame 160x128 orbit through the port on the CPU (plain
                   versions) and on the card (kernels), held as phase 9
@@ -51,7 +53,7 @@ caught, nothing falls back to the CPU):
                   gated: ROADMAP C1); finite poses, peak memory,
                   first-frame ms; then phase 5's rerun (bit for bit: poses,
                   maps, masks) with the frames after the first spawn as the
-                  timing window, and the 2-frame profile; and the device ms
+                  timing window, and the 1-frame profile; and the device ms
                   of one object slot's fuse/clean, which an idle slot pays
                   as well (the idle-slot select)
   8. GT masks     12 frames of the same scene with its object masks
@@ -92,11 +94,33 @@ caught, nothing falls back to the CPU):
                   exact; where one step's counts part, both devices step
                   again with about an ulp of depth noise and the ranges of
                   their counts must overlap (ROADMAP C11)
+ 14. gt pose      '-p': phase 4's 30 orbit frames fed their ground-truth
+                  poses, frames 3-30 under the sync check; logged poses
+                  equal to the given ones; the bilateral kernel once a
+                  frame, the splat in the first frame only; surfels, peak
+                  memory, then phase 5's rerun and profile; the same on the
+                  multi path's GT-mask frames with 4 slots (12 frames)
+ 15. render views `render_views` ('-en'/'-ev') on phase 4's final state and
+                  on the same frames run with time delta 5 (the stable tier
+                  fills): the splat kernel bit-equal to its plain version on
+                  both tiers' own index maps, valid pixels of each, launches
+                  and device ms per call
+ 16. checkpoint   save at frame 15 of the static orbit, resume in a new
+                  engine, run to 30: bit-identical to the uninterrupted
+                  run; the file loads on the CPU with an equal state; save
+                  and load seconds, file size
+ 17. hot params   set_params and set_confidence_threshold between frames
+                  of the static path (160x128) under the sync check: the
+                  run parts from an untouched one from that frame on, and
+                  stays within 1e-5 + 2e-6*step of the CPU given the same
+                  calls
 
 Each phase line ends with `at_s`, the seconds since the start.  The last
 stdout line is {"ok": true, "device": {...}}; before it, a
 {"kernels": [...]} line (`launches` from the `-static -rl -cl` path's run,
-`launches_multi` and `launches_static` from the other two) and the
+`launches_multi` and `launches_static` from phases 7 and 4,
+`launches_gt_pose` from phase 14's static run, `launches_render` from one
+`render_views` call) and the
 nvidia-smi name/power-limit line.  Exits non-zero without a result when CUDA is
 unavailable or any phase fails.  Imports only the port (cofusion_tpu_torch),
 which imports nothing of JAX.
@@ -332,6 +356,22 @@ def _max_err(a, b) -> float:
     return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
+def _zero_counts():
+    """Every kernel wrapper's launch count set to 0."""
+    from cofusion_tpu_torch.ops import cuda_splat, cuda_stencil
+
+    cuda_stencil.bilateral_filter_cuda.launches = 0
+    cuda_splat.splat_window_cuda.launches = 0
+
+
+def _read_counts() -> dict:
+    """Each kernel's launches since `_zero_counts`."""
+    from cofusion_tpu_torch.ops import cuda_splat, cuda_stencil
+
+    return {"bilateral_filter": cuda_stencil.bilateral_filter_cuda.launches,
+            "splat_window": cuda_splat.splat_window_cuda.launches}
+
+
 def phase_kernels(dev, depth_frame, baseline_csrc=None):
     """Each kernel against its plain version at the main path's shapes and
     at edge shapes (bar: equal bit for bit), then device time per launch
@@ -428,14 +468,12 @@ def phase_main_path(dev, frames, gt):
     import numpy as np
     import torch
 
-    from cofusion_tpu_torch.ops import cuda_splat, cuda_stencil
     from cofusion_tpu_torch.utils.export import ate_rmse
 
     eng = _engine(dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cuda_stencil.bilateral_filter_cuda.launches = 0
-    cuda_splat.splat_window_cuda.launches = 0
+    _zero_counts()
 
     t0 = time.perf_counter()
     eng.process_frame(frames[0])
@@ -454,10 +492,7 @@ def phase_main_path(dev, frames, gt):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     checked_ms = (time.perf_counter() - t0) * 1e3 / len(frames[2:])
-    launches = {
-        "bilateral_filter": cuda_stencil.bilateral_filter_cuda.launches,
-        "splat_window": cuda_splat.splat_window_cuda.launches,
-    }
+    launches = _read_counts()
     peak = torch.cuda.max_memory_allocated()
     est = [p[1][0] for p in eng.pose_log]
     ate12 = ate_rmse(est[:12], gt[:12], align=False)
@@ -479,25 +514,29 @@ def phase_main_path(dev, frames, gt):
     return launches, eng
 
 
-def phase_timing(make_engine, frames, ref_eng, ref_masks=None, tag="timing", start=2):
+def phase_timing(make_engine, frames, ref_eng, ref_masks=None, tag="timing", start=2, gt=None):
     """The frames of a main-path phase on a new engine with no sync check
     and no per-frame synchronize: frames start+1..N are one timed window.
     The rerun must equal the reference run bit for bit (poses, both map
     tiers of every slot, and the drained masks when `ref_masks` is given).
+    `gt`: each frame's ground-truth pose ('-p').
     Returns (steady ms per frame, device busy ms per frame, the engine)."""
     import numpy as np
     import torch
 
+    def feed(eng, i, f):
+        eng.process_frame(f, gt_pose=None if gt is None else gt[i])
+
     eng = make_engine()
-    for f in frames[:start]:
-        eng.process_frame(f)
+    for i, f in enumerate(frames[:start]):
+        feed(eng, i, f)
     torch.cuda.synchronize()
     window = frames[start:]
     enqueue_s = 0.0
     t0 = time.perf_counter()
-    for f in window:
+    for i, f in enumerate(window, start=start):
         t = time.perf_counter()
-        eng.process_frame(f)
+        feed(eng, i, f)
         enqueue_s += time.perf_counter() - t
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
@@ -526,14 +565,15 @@ def phase_timing(make_engine, frames, ref_eng, ref_masks=None, tag="timing", sta
            masks="bit-identical" if ref_masks is not None else "not compared",
            active_count=st.store.count.tolist(), stable_count=st.stable.count.tolist())
 
-    # where the time goes: launches and device busy time over 2 more frames
-    # (the last frames fed again); idle share against the unprofiled window
+    # where the time goes: launches and device busy time over 1 more frame
+    # (the last frame fed again; the profiler's own processing of a frame's
+    # ~10^4 launches takes ~10-25 s); idle share against the unprofiled window
     from torch.profiler import ProfilerActivity, profile
 
-    n = 2
+    n = 1
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for f in frames[-n:]:
-            eng.process_frame(f)
+        for i in range(len(frames) - n, len(frames)):
+            feed(eng, i, frames[i])
         torch.cuda.synchronize()
     events = prof.key_averages()
     launches = sum(e.count for e in events if "LaunchKernel" in e.key)
@@ -591,14 +631,11 @@ def phase_multi_crf(dev, frames, gt_ids):
     import numpy as np
     import torch
 
-    from cofusion_tpu_torch.ops import cuda_splat, cuda_stencil
-
     eng = _multi_engine(dev)
     events = _listen(eng)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cuda_stencil.bilateral_filter_cuda.launches = 0
-    cuda_splat.splat_window_cuda.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     eng.process_frame(frames[0])
     torch.cuda.synchronize()
@@ -614,10 +651,7 @@ def phase_multi_crf(dev, frames, gt_ids):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     checked_ms = (time.perf_counter() - t0) * 1e3 / len(frames[2:])
-    launches = {
-        "bilateral_filter": cuda_stencil.bilateral_filter_cuda.launches,
-        "splat_window": cuda_splat.splat_window_cuda.launches,
-    }
+    launches = _read_counts()
     peak = torch.cuda.max_memory_allocated()
     eng.flush_lifecycle()
     masks = dict(eng.drain_segmentation(flush=True))
@@ -1080,7 +1114,6 @@ def phase_loop_path(dev, frames, gt):
     import numpy as np
     import torch
 
-    from cofusion_tpu_torch.ops import cuda_splat, cuda_stencil
     from cofusion_tpu_torch.utils.export import ate_rmse
 
     frames, gt = frames[:LOOP_FRAMES], gt[:LOOP_FRAMES]
@@ -1089,8 +1122,7 @@ def phase_loop_path(dev, frames, gt):
     torch.cuda.reset_peak_memory_stats()
     # what earlier phases still hold: the path's own peak is above it
     before = torch.cuda.memory_allocated()
-    cuda_stencil.bilateral_filter_cuda.launches = 0
-    cuda_splat.splat_window_cuda.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     eng.process_frame(frames[0])
     torch.cuda.synchronize()
@@ -1107,10 +1139,7 @@ def phase_loop_path(dev, frames, gt):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     checked_ms = (time.perf_counter() - t0) * 1e3 / len(frames[2:])
-    launches = {
-        "bilateral_filter": cuda_stencil.bilateral_filter_cuda.launches,
-        "splat_window": cuda_splat.splat_window_cuda.launches,
-    }
+    launches = _read_counts()
     peak = torch.cuda.max_memory_allocated()
     est = [p[1][0] for p in eng.pose_log]
     ate = ate_rmse(est, gt, align=False)
@@ -1211,10 +1240,11 @@ def _age_and_drift(eng):
                                                       pose=pose))
 
 
-def _splat_on_loop_maps(eng):
-    """The splat kernel against its plain version, bit for bit, on the loop
-    block's own index maps of the current state: the active view and the
-    inactive views of both tiers, passed as splat_from_imap passes them."""
+def _splat_on_views(eng, tiers):
+    """The splat kernel against its plain version, bit for bit, on index
+    maps of the current state: `tiers` is a list of (name, store, time
+    delta, active window), each rendered at slot 0's pose and splatted as
+    splat_from_imap splats it."""
     import torch
 
     import cofusion_tpu_torch.engine as em
@@ -1224,10 +1254,8 @@ def _splat_on_loop_maps(eng):
     st, cfg, cam, fp = eng.state, eng.cfg, eng.cam, eng._fparams
     pose0, conf0 = st.models.pose[0], st.models.conf_threshold[0]
     rows = []
-    for tier, store, active in (("active view", st.models.store, True),
-                                ("inactive, active tier", st.models.store, False),
-                                ("inactive, stable tier", st.models.stable, False)):
-        imap = rz.predict_indices(em._unbatch(store), pose0, cam, st.tick, fp["time_delta"],
+    for tier, store, td, active in tiers:
+        imap = rz.predict_indices(em._unbatch(store), pose0, cam, st.tick, td,
                                   fp["depth_cutoff"], conf_threshold=conf0, active_window=active)
         args = (imap.vert_conf[None, ..., :3], imap.normal_rad[None, ..., :3],
                 imap.normal_rad[None, ..., 3], imap.valid[None], cfg.splat_radius,
@@ -1241,8 +1269,18 @@ def _splat_on_loop_maps(eng):
         rows.append(dict(map=tier, valid_pixels=int(imap.valid.sum()), tap_mismatches=mism,
                          max_abs_z_err=_max_err(z_k, z_p)))
         if mism or not torch.equal(z_k, z_p):
-            raise RuntimeError(f"splat kernel differs from plain on the loop's {tier} map: {rows[-1]}")
+            raise RuntimeError(f"splat kernel differs from plain on the {tier} map: {rows[-1]}")
     return rows
+
+
+def _splat_on_loop_maps(eng):
+    """The splat kernel against its plain version on the loop block's own
+    index maps of the current state: the active view and the inactive
+    views of both tiers."""
+    m, td = eng.state.models, eng._fparams["time_delta"]
+    return _splat_on_views(eng, [("active view", m.store, td, True),
+                                 ("inactive, active tier", m.store, td, False),
+                                 ("inactive, stable tier", m.stable, td, False)])
 
 
 def phase_loop_closure(dev, frames, gt):
@@ -1344,15 +1382,294 @@ def phase_loop_parity():
             raise RuntimeError(f"reloc parity: lost frames {line['lost_frames']}")
 
 
+# --- the remaining surfaces: '-p', render_views, checkpoints, hot tuning
+def _gt_poses(gt):
+    """float64 (4, 4) poses relative to the first, as GroundTruthOdometry
+    accumulates them."""
+    import numpy as np
+
+    first = np.linalg.inv(np.asarray(gt[0], np.float64))
+    return [first @ np.asarray(g, np.float64) for g in gt]
+
+
+def phase_gt_pose(dev, frames, gt):
+    """'-p' on the static configuration (phase 4's): 30 orbit frames fed
+    their ground-truth poses, frames 3-30 under the sync check.  The logged
+    poses must be the given ones (as fp32) on every frame; the bilateral
+    kernel runs once a frame, the splat only in the first frame's render
+    (the '-p' step carries the prediction).  Then a rerun with no sync
+    check (steady ms/frame, bit-identical) and a 1-frame profile, and the
+    same on the multi path's GT-mask frames with 4 slots (12 frames:
+    '-p' skips segmentation, so no object spawns).  Returns the launch
+    counts of the static run."""
+    import numpy as np
+    import torch
+
+    from cofusion_tpu_torch.config import CameraConfig
+    from cofusion_tpu_torch.io.synthetic import camera_trajectory, make_multi_object_frames
+
+    poses = _gt_poses(gt)
+    eng = _engine(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    for i, f in enumerate(frames[:2]):
+        eng.process_frame(f, gt_pose=poses[i])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(2, len(frames)):
+            eng.process_frame(frames[i], gt_pose=poses[i])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    checked_ms = (time.perf_counter() - t0) * 1e3 / (len(frames) - 2)
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    logged = [p[1][0] for p in eng.pose_log]
+    off = [i for i in range(1, len(frames)) if not np.array_equal(logged[i], poses[i].astype(np.float32))]
+    n = eng.surfel_count(0)
+    _phase("gt_pose", frames=len(frames), launches=launches, surfels=n,
+           poses="equal to the given fp32 poses" if not off else f"differ at {off}",
+           max_memory_allocated_bytes=peak, sync_debug=f"error on frames 3-{len(frames)}",
+           checked_ms_per_frame=f"{checked_ms:.3f}")
+    if off:
+        raise RuntimeError(f"'-p' logged poses differ from the given ones at frames {off}")
+    if launches["bilateral_filter"] != len(frames) or launches["splat_window"] != 1:
+        raise RuntimeError(f"'-p' path launches {launches}: expected {len(frames)} bilateral, 1 splat")
+    if not 0.3 * eng.cam.width * eng.cam.height < n:
+        raise RuntimeError(f"'-p' map holds {n} surfels")
+    phase_timing(lambda: _engine(dev), frames, eng, tag="gt_pose_timing", gt=poses)
+    del eng
+
+    # the multi path's GT-mask scene, 4 slots: every active slot fuses at
+    # its pose (here the global one alone: '-p' spawns nothing)
+    cam = CameraConfig()
+    unique = make_multi_object_frames(cam, 12, masks=True)
+    m = 12 // 2 + 1
+    cam_poses = camera_trajectory(m, kind="orbit")
+    order = list(range(m)) + list(range(m - 2, 0, -1))
+    mposes = _gt_poses([cam_poses[j] for j in order[:12]])
+    meng = _multi_engine(dev, model_spawn_offset=2)
+    torch.cuda.synchronize()
+    _zero_counts()
+    for i, f in enumerate(unique[:2]):
+        meng.process_frame(f, gt_pose=mposes[i])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(2, len(unique)):
+            meng.process_frame(unique[i], gt_pose=mposes[i])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    mlaunches = _read_counts()
+    mlogged = [p[1][0] for p in meng.pose_log]
+    moff = [i for i in range(1, 12) if not np.array_equal(mlogged[i], mposes[i].astype(np.float32))]
+    _phase("gt_pose_multi", frames=len(unique), slots=meng.cfg.max_models, launches=mlaunches,
+           surfels=meng.stats()["surfel_counts"].tolist(),
+           active=meng.state.models.active.tolist(),
+           poses="equal to the given fp32 poses" if not moff else f"differ at {moff}",
+           sync_debug=f"error on frames 3-{len(unique)}")
+    if moff or mlaunches["bilateral_filter"] != len(unique):
+        raise RuntimeError(f"'-p' multi path: poses off at {moff}, launches {mlaunches}")
+    phase_timing(lambda: _multi_engine(dev, model_spawn_offset=2), unique, meng,
+                 tag="gt_pose_multi_timing", gt=mposes)
+    return launches
+
+
+def phase_render_views(dev, frames, static_eng):
+    """`render_views` (the '-en'/'-ev' exports) on the final state of phase
+    4's run and of the same 30 orbit frames with time delta 5 ('-t 5': what
+    the orbit leaves behind ages out of the window within 5 frames, so the
+    stable tier fills) and global confidence 1.5.
+    On both: the splat kernel bit-equal to its plain version on each tier's
+    own index map (the active tier within the window, the stable tier with
+    none), the valid pixels of each, the launches of one call and its
+    device ms (torch.profiler over 2 calls).  Returns the launch counts of
+    one call."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cofusion_tpu_torch.config import CameraConfig, CoFusionConfig, FusionParams
+    from cofusion_tpu_torch.engine import CoFusion
+
+    if static_eng is None:  # run alone ('--only surfaces'): phase 4's run again
+        static_eng = _engine(dev)
+        for f in frames:
+            static_eng.process_frame(f)
+    # '-t 5 -confG 1.5': the surfels that age out are the ones the orbit
+    # left behind, seen a few times only; the render's confidence gate at
+    # the default 10 would show none of them
+    t5 = CoFusion(CoFusionConfig(camera=CameraConfig(), max_models=1, time_delta=5),
+                  fusion_params=FusionParams(depth_cutoff=4.5, confidence_global=1.5), device=dev)
+    for f in frames:
+        t5.process_frame(f)
+    launches, stable_pixels = None, 0
+    for name, eng in (("static", static_eng), ("time_delta_5", t5)):
+        m = eng.state.models
+        rows = _splat_on_views(eng, [
+            ("active tier", m.store, eng.cfg.time_delta, True),
+            ("stable tier", m.stable, 1 << 30, True),
+        ])
+        stable_pixels = max(stable_pixels, rows[1]["valid_pixels"])
+        torch.cuda.synchronize()
+        _zero_counts()
+        views = eng.render_views()
+        launches = _read_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                eng.render_views()
+            torch.cuda.synchronize()
+        busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / 2
+        t0 = time.perf_counter()
+        eng.render_views()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        finite = bool(np.isfinite(views["image"][views["valid"]]).all()
+                      and np.isfinite(views["normal"][views["valid"]]).all())
+        _phase("render_views", state=name, stable_count=int(m.stable.count[0]),
+               active_count=int(m.store.count[0]), valid_pixels=int(views["valid"].sum()),
+               launches_per_call=launches,
+               device_ms_per_call=f"{busy_ms:.3f}" if busy_ms else "not measured",
+               wall_ms_per_call=f"{wall_ms:.3f}", finite=finite)
+        for row in rows:
+            _phase("kernels", kernel="splat_window", on=f"render_views, {name}", **row, bar="bit-equal")
+        if launches["splat_window"] != 2 or not finite or not views["valid"].any():
+            raise RuntimeError(f"render_views on {name}: launches {launches}, finite {finite}")
+    if not stable_pixels:
+        raise RuntimeError("the stable tier's view is empty in both states")
+    return launches
+
+
+def phase_checkpoint(dev, frames):
+    """Save the static orbit's engine at frame 15, resume in a new engine
+    and run to frame 30: poses, counts and both map tiers bit-identical to
+    the run that went on uninterrupted.  The same file loads into an engine
+    on the CPU with an equal state.  Save and load seconds, file size."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cofusion_tpu_torch.config import CameraConfig, CoFusionConfig, FusionParams
+    from cofusion_tpu_torch.engine import CoFusion
+    from cofusion_tpu_torch.utils import checkpoint as ckpt
+
+    k = 15
+    a = _engine(dev)
+    for f in frames[:k]:
+        a.process_frame(f)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "cofusion_tpu_torch", "_build")) as tmp:
+        path = os.path.join(tmp, "engine.ckpt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_engine(a, path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        b = _engine(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.load_engine(b, path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        cpu = CoFusion(CoFusionConfig(camera=CameraConfig(), max_models=1),
+                       fusion_params=FusionParams(depth_cutoff=4.5), device="cpu")
+        ckpt.load_engine(cpu, path)
+    on_card = ckpt.flatten_state(b.state)
+    on_cpu = ckpt.flatten_state(cpu.state)
+    cpu_equal = on_card.keys() == on_cpu.keys() and all(
+        (on_card[key] == on_cpu[key]) if not isinstance(on_card[key], torch.Tensor)
+        else (on_cpu[key].device.type == "cpu" and torch.equal(on_card[key].cpu(), on_cpu[key]))
+        for key in on_card
+    )
+    del cpu, on_card, on_cpu
+    for f in frames[k:]:
+        a.process_frame(f)
+        b.process_frame(f)
+    pa = [p[1] for p in a.pose_log]
+    pb = [p[1] for p in b.pose_log]
+    poses_equal = len(pa) == len(pb) == len(frames) and all(np.array_equal(x, y) for x, y in zip(pa, pb))
+    maps_equal = all(
+        torch.equal(x, y)
+        for tier in ("store", "stable")
+        for x, y in zip(getattr(a.state.models, tier), getattr(b.state.models, tier))
+    )
+    _phase("checkpoint", saved_at_frame=k, frames=len(frames), file_bytes=size,
+           save_s=f"{save_s:.3f}", load_s=f"{load_s:.3f}", surfels=b.surfel_count(0),
+           resumed="bit-identical" if poses_equal and maps_equal else "differs",
+           cpu_load="equal" if cpu_equal else "differs")
+    if not (poses_equal and maps_equal and cpu_equal):
+        raise RuntimeError(f"checkpoint: poses {poses_equal}, maps {maps_equal}, cpu load {cpu_equal}")
+
+
+HOT_FRAME = 4  # the frame before which set_params runs
+HOT_PARAMS = dict(depth_cutoff=3.0, icp_weight=25.0, outlier_coefficient=5.0)
+
+
+def phase_hot_params(dev):
+    """set_params(depth_cutoff, icp_weight, outlier_coefficient) and
+    set_confidence_threshold(0, ...) between frames of the static path
+    (160x128, 8 orbit frames), on the card under the sync check: the run
+    parts from an untouched one from that frame on, and its poses stay
+    within 1e-5 + 2e-6*step of the CPU run given the same calls, counts
+    equal."""
+    import numpy as np
+    import torch
+
+    from cofusion_tpu_torch.config import CameraConfig, CoFusionConfig, FusionParams
+    from cofusion_tpu_torch.engine import CoFusion
+    from cofusion_tpu_torch.io.synthetic import make_sequence
+
+    cam = CameraConfig(**SMALL_CAM)
+    frames, _, _ = make_sequence(cam, 8, kind="orbit")
+
+    def run(device, tune):
+        eng = CoFusion(CoFusionConfig(camera=cam, max_models=1, max_surfels=1 << 17),
+                       fusion_params=FusionParams(depth_cutoff=4.5, confidence_global=1.5),
+                       device=device)
+        poses, counts = [], []
+        try:
+            for i, f in enumerate(frames):
+                if torch.device(device).type == "cuda" and i == 2:
+                    torch.cuda.set_sync_debug_mode("error")
+                if tune and i == HOT_FRAME:
+                    eng.set_params(**HOT_PARAMS)
+                    eng.set_confidence_threshold(0, 2.5)
+                eng.process_frame(f)
+                poses.append(eng.state.models.pose[0].clone())
+                counts.append(eng.state.models.store.count[0].clone())
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return [p.cpu().numpy() for p in poses], [int(c) for c in counts]
+
+    base_p, base_c = run(dev, False)
+    card_p, card_c = run(dev, True)
+    cpu_p, cpu_c = run("cpu", True)
+    parted = [i for i in range(len(frames))
+              if card_c[i] != base_c[i] or not np.array_equal(card_p[i], base_p[i])]
+    gaps = [float(np.abs(a - b).max()) for a, b in zip(card_p, cpu_p)]
+    over = [i for i, g in enumerate(gaps) if g > 1e-5 + 2e-6 * i]
+    _phase("hot_params", frames=len(frames), set_before_frame=HOT_FRAME, params=HOT_PARAMS,
+           conf_threshold_0=2.5, parted_from_untouched_at=parted,
+           max_pose_gap_to_cpu=f"{max(gaps):.3e}", counts_card=card_c, counts_cpu=cpu_c,
+           sync_debug="error on frames 3-8", bar="1e-5 + 2e-6*step; counts equal")
+    if parted != list(range(HOT_FRAME, len(frames))) or over or card_c != cpu_c:
+        raise RuntimeError(f"hot params: parted at {parted}, over the bar at {over}, "
+                           f"counts {card_c} vs {cpu_c}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR",
                     help="also time the kernels built from the .cu files in DIR")
     ap.add_argument("--only", metavar="GROUPS",
                     help="run only these comma-separated groups of phases (kernels, static, "
-                         "multi, loop) and print no result lines: for development")
+                         "multi, loop, surfaces) and print no result lines: for development")
     opts = ap.parse_args(argv)
-    groups = set(opts.only.split(",")) if opts.only else {"kernels", "static", "multi", "loop"}
+    groups = (set(opts.only.split(",")) if opts.only
+              else {"kernels", "static", "multi", "loop", "surfaces"})
     import torch
 
     if not torch.cuda.is_available():
@@ -1384,10 +1701,10 @@ def main(argv=None) -> int:
     cam = CameraConfig()
     if "kernels" in groups:
         kern = phase_kernels(dev, frames[0]["depth"], opts.baseline)
+    static_eng = None
     if "static" in groups:
-        launches_static, eng = phase_main_path(dev, frames, gt)
-        phase_timing(lambda: _engine(dev), frames, eng)
-        del eng
+        launches_static, static_eng = phase_main_path(dev, frames, gt)
+        phase_timing(lambda: _engine(dev), frames, static_eng)
         phase_parity()
 
     if "multi" in groups:
@@ -1417,6 +1734,14 @@ def main(argv=None) -> int:
         phase_reloc(dev)
         phase_loop_parity()
 
+    if "surfaces" in groups:
+        launches_gt_pose = phase_gt_pose(dev, frames, gt)
+        launches_render = phase_render_views(dev, frames, static_eng)
+        del static_eng
+        phase_checkpoint(dev, frames)
+        phase_hot_params(dev)
+    _phase("done", seconds=f"{time.perf_counter() - _T0:.1f}")
+
     if opts.only:
         return 0
     sources = {
@@ -1426,7 +1751,8 @@ def main(argv=None) -> int:
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "launches_multi": launches_multi[name],
-         "launches_static": launches_static[name], **kern[name]}
+         "launches_static": launches_static[name], "launches_gt_pose": launches_gt_pose[name],
+         "launches_render": launches_render[name], **kern[name]}
         for name, (src, rep) in sources.items()
     ]
     print(json.dumps({"kernels": kernels}))

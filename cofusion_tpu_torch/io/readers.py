@@ -13,6 +13,9 @@ JAX package's `cofusion_tpu/io/readers.py` (`tests/test_torch_io.py`):
     (GUI/Tools/ImageLogReader.{h,cpp}, buffering loop :179-217);
   * load_calibration, write_klg.
 
+Both readers step backward (`get_previous`) and restart (`rewind`) for the
+'-r' ping-pong playback (MainController.cpp:352-363).
+
 Frames are dicts {rgb uint8 (H,W,3) RGB-order, depth float32 meters,
 mask uint8 | None, timestamp int} (Core/FrameData.h:25-42).  `cv2` is
 imported only where an image is decoded.
@@ -120,6 +123,14 @@ class LogReader:
     def get_next(self) -> dict:
         raise NotImplementedError
 
+    def get_previous(self) -> dict:
+        """Step one frame back and return it ('-r', LogReader::getPrevious)."""
+        raise NotImplementedError
+
+    def rewind(self) -> None:
+        """Back to the first frame."""
+        raise NotImplementedError
+
     def has_more(self) -> bool:
         return self.current_frame < self.num_frames()
 
@@ -142,6 +153,9 @@ class KlgLogReader(LogReader):
         self.height = height
         self._lib = _load_native()
         self._h = None
+        # frame start offsets of the Python decoder, for get_previous (the
+        # reference's file-pointer stack, KlgLogReader.cpp:41-128)
+        self._offsets: list[int] = []
         if self._lib is not None:
             self._h = self._lib.klg_open(path.encode(), width, height)
             if not self._h:
@@ -173,8 +187,30 @@ class KlgLogReader(LogReader):
             rgb = rgb[..., ::-1]
         return {"rgb": rgb, "depth": depth, "mask": None, "timestamp": int(ts.value)}
 
+    def get_previous(self) -> dict:
+        i = max(self.current_frame - 2, 0)
+        if self._lib is not None:
+            self._lib.klg_seek(self._h, i)
+            self.current_frame = i
+            return self.get_next()
+        # frames are read forward only, so the stack holds every frame start
+        # up to current_frame
+        del self._offsets[i + 1:]
+        self._fp.seek(self._offsets[i] if self._offsets else 4)
+        self.current_frame = i
+        return self._get_next_python()
+
+    def rewind(self) -> None:
+        if self._lib is not None:
+            self._lib.klg_seek(self._h, 0)
+        else:
+            self._fp.seek(4)
+        self.current_frame = 0
+
     def _get_next_python(self) -> dict:
         npix = self.width * self.height
+        if len(self._offsets) <= self.current_frame:
+            self._offsets.append(self._fp.tell())
         ts, dsize, rsize = struct.unpack("<qii", self._fp.read(16))
         dbuf = self._fp.read(dsize)
         rbuf = self._fp.read(rsize) if rsize > 0 else b""
@@ -330,9 +366,26 @@ class ImageLogReader(LogReader):
     def get_next(self) -> dict:
         i, frame = self._queue.get()
         self.current_frame = i + 1
-        if self.flip_colors:
-            frame = dict(frame, rgb=frame["rgb"][..., ::-1])
-        return frame
+        return self._flipped(frame)
+
+    def get_previous(self) -> dict:
+        """Backward step read directly: the prefetch queue runs forward only
+        (and has drained when playback turns at the log's end)."""
+        i = max(self.current_frame - 2, 0)
+        frame = self._load(i)
+        self.current_frame = i + 1
+        return self._flipped(frame)
+
+    def _flipped(self, frame: dict) -> dict:
+        return dict(frame, rgb=frame["rgb"][..., ::-1]) if self.flip_colors else frame
+
+    def rewind(self) -> None:
+        self.close()
+        self._queue = queue.Queue(maxsize=self._queue.maxsize)
+        self._stop = threading.Event()
+        self.current_frame = 0
+        self._thread = threading.Thread(target=self._prefetch_loop, daemon=True)
+        self._thread.start()
 
     def close(self):
         self._stop.set()

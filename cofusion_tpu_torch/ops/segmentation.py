@@ -13,7 +13,7 @@ Determinism on the card: no float sum feeds a gate through an atomic add.
 Superpixel sums are the block reductions of `_sp_sums_local` (the only
 form the port keeps: the JAX package's scatter fallback for assignments
 that are not SLIC's has no caller); the few float scatter-adds left (the
-grid's remainder strips, `gt_mask_stats`) go through
+grid's remainder strips, odd superpixel sizes, `gt_mask_stats`) go through
 `_segment_sum`, a one-hot matrix product on every device.
 Integer counts scatter (integer atomics are exact).  Nothing reads a device
 value on the host: counts go into fixed-size buffers (`bincount` would read
@@ -73,12 +73,17 @@ def _sp_sums_local(chans, w, assign, GH: int, GW: int, S: int, stride: int = 2):
     base cell.  Nine masked block reductions plus shifts of the (GH, GW)
     grid; pixels outside the window are dropped (none exist for SLIC
     output).  chans: list of (H, W); w: (H, W) float32 weights.  Returns
-    (sums: list of (K,), cnt: (K,)), K = GH*GW."""
-    assert S % stride == 0
-    T = S // stride
+    (sums: list of (K,), cnt: (K,)), K = GH*GW.  Where the stride does not
+    divide S (an odd superpixel size), the grid has no whole blocks: the
+    same sums over the same strided pixels come from `_segment_sum`
+    (ROADMAP C4; the JAX package asserts there)."""
     a_s = assign[::stride, ::stride]
     w_s = w[::stride, ::stride]
     ch_s = [c[::stride, ::stride] for c in chans]
+    if S % stride:
+        K = GH * GW
+        return [_segment_sum(a_s, c * w_s, K) for c in ch_s], _segment_sum(a_s, w_s, K)
+    T = S // stride
     Hs, Ws = a_s.shape
     Hm, Wm = GH * T, GW * T
     dev = assign.device

@@ -35,6 +35,11 @@ class Stopwatch:
             self._totals[name] += ms
             self._counts[name] += 1
 
+    def timings(self) -> dict[str, float]:
+        """Most recent ms per section (what the '-fs' frame-skip policy
+        reads)."""
+        return dict(self._last)
+
     def report(self) -> str:
         lines = ["section                          mean ms     last ms   calls"]
         for k in sorted(self._totals):

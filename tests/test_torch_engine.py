@@ -230,14 +230,12 @@ def test_cli_static_export_matches_jax_engine(data, small_cam):
     ["enable_relocalization", "close_loops", "frame_to_frame_rgb"],
 )
 def test_unported_engine_options_raise(small_cam, option):
-    """An option that is not ported raises with its ROADMAP item;
-    relocalisation and loop closure are ported (ROADMAP A12-A13) and build
-    an engine with the option on."""
-    if option == "frame_to_frame_rgb":
-        with pytest.raises(NotImplementedError, match=r"not yet ported .*ROADMAP A\d+"):
-            CoFusion(_tcfg(small_cam), device="cpu", **{option: True})
-    else:
-        assert getattr(CoFusion(_tcfg(small_cam), device="cpu", **{option: True}), option) is True
+    """Every engine option of the JAX package is ported (relocalisation and
+    loop closure in ROADMAP A12-A13, frame-to-frame RGB in A14): each builds
+    an engine with the option on, and '-ftf' reaches the step's scalars."""
+    eng = CoFusion(_tcfg(small_cam), device="cpu", **{option: True})
+    assert getattr(eng, option) is True
+    assert eng._fparams["ftf"] is (option == "frame_to_frame_rgb")
 
 
 def test_cli_device_defaults_to_cuda_and_refuses_without_it(data, monkeypatch):

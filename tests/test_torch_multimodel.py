@@ -287,15 +287,12 @@ def test_cli_multi_model_with_masks(small_cam, tmp_path):
 
 @pytest.mark.parametrize("flag", ["-rl", "-cl", "-p"])
 def test_cli_refuses_what_multi_model_leaves_out(flag):
-    """Of what the multi-model path left out, ground-truth poses stay refused
-    with their ROADMAP item; relocalisation and loop closure are ported
-    since (ROADMAP A12-A13): the CLI takes their flags and goes on to open
-    the log."""
+    """What the multi-model path left out is ported since: relocalisation
+    and loop closure (ROADMAP A12-A13) and ground-truth poses (A14).  The
+    CLI takes each flag and goes on to open the log."""
     from cofusion_tpu_torch import cli
 
-    refused = flag == "-p"
-    with pytest.raises(SystemExit if refused else OSError,
-                       match=r"not yet ported \(ROADMAP A14" if refused else "missing.klg"):
+    with pytest.raises(OSError, match="missing.klg"):
         cli.build_from_args(["-l", "missing.klg", flag, "x"])
 
 

@@ -1,8 +1,8 @@
 """The port stands without JAX: no module of cofusion_tpu_torch imports it,
-the package, its engine, its CLI, its readers and chip_smoke.py import in a
-process where `import jax` fails and import nothing of the JAX package
-either, and on CPU tensors the kernel dispatchers never reach the CUDA
-kernel loader."""
+the package, its engine, its CLI, its readers, its ground-truth poses, its
+checkpoints and chip_smoke.py import in a process where `import jax` fails
+and import nothing of the JAX package either, and on CPU tensors the kernel
+dispatchers never reach the CUDA kernel loader."""
 
 import os
 import pathlib
@@ -40,7 +40,8 @@ def test_no_source_file_imports_jax():
      "cofusion_tpu_torch.convert", "cofusion_tpu_torch.utils.export",
      "cofusion_tpu_torch.io.synthetic", "cofusion_tpu_torch.io.readers",
      "cofusion_tpu_torch.ops.segmentation", "cofusion_tpu_torch.ops.ferns",
-     "cofusion_tpu_torch.ops.deformation", "cofusion_tpu_torch.ops.local_loop", "chip_smoke"],
+     "cofusion_tpu_torch.ops.deformation", "cofusion_tpu_torch.ops.local_loop",
+     "cofusion_tpu_torch.io.ground_truth", "cofusion_tpu_torch.utils.checkpoint", "chip_smoke"],
 )
 def test_imports_with_jax_blocked(module):
     banned = ("jax", "cofusion_tpu")

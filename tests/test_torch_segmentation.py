@@ -218,3 +218,54 @@ def test_gt_mask_mapper_matches():
                 jm.purge_slot(s)
                 tm.purge_slot(s)
                 assert tm.mapping == jm.mapping
+
+
+# --- an odd superpixel size (ROADMAP C4): the JAX package asserts S % 2 == 0
+
+
+def _sums_bincount(chans, w, assign, K, stride=2):
+    """The strided per-superpixel sums as numpy float64 bincounts."""
+    a = np.asarray(assign)[::stride, ::stride].reshape(-1)
+    ws = np.asarray(w, np.float64)[::stride, ::stride].reshape(-1)
+    sums = [np.bincount(a, weights=np.asarray(c, np.float64)[::stride, ::stride].reshape(-1) * ws,
+                        minlength=K)[:K] for c in chans]
+    return sums, np.bincount(a, weights=ws, minlength=K)[:K]
+
+
+@pytest.mark.parametrize("S", [5, 7, 9])
+def test_sp_sums_local_odd_size_matches_bincount(frame, small_cam, S):
+    """Where the stride does not divide S, `_sp_sums_local` sums the
+    same strided pixels by `_segment_sum`: equal to numpy's bincount of
+    them to fp32 rounding, on SLIC's own assignment of the frame."""
+    _, tc = _cfgs(small_cam, S)
+    rgb = _t(frame["rgb"]).to(torch.float32)
+    assign = tsg.slic_assign(rgb, tc)
+    H, W = assign.shape
+    GH, GW = H // S, W // S
+    rng = np.random.default_rng(S)
+    w = rng.random((H, W)).astype(np.float32)
+    chans = [rgb[..., 0], _t(frame["depth"])]
+    sums, cnt = tsg._sp_sums_local(chans, _t(w), assign, GH, GW, S, stride=2)
+    want, want_cnt = _sums_bincount([c.numpy() for c in chans], w, assign.numpy(), GH * GW)
+    np.testing.assert_allclose(cnt.numpy(), want_cnt, rtol=RTOL, atol=1e-4)
+    for got, ref in zip(sums, want):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL, atol=1e-3)
+    assert cnt.sum() > 0.9 * w[::2, ::2].sum()
+
+
+def test_odd_superpixel_size_segments(frame, small_cam):
+    """An odd superpixel size runs the whole CRF segmentation (the JAX
+    package stops at its assertion): a moving region in the ICP error of
+    the global model wins a new label, as at the default even size."""
+    _, tc = _cfgs(small_cam, 7)
+    H, W = small_cam.height, small_cam.width
+    err = torch.zeros((3, H, W))
+    err[0, H // 4: 3 * H // 4, W // 4: 3 * W // 4] = 0.5
+    seg = tsg.perform_segmentation_crf(
+        _t(frame["rgb"]).to(torch.float32), _t(frame["depth"]), err, torch.ones((3, H, W)),
+        torch.tensor([True, False, False]), torch.tensor(1, dtype=torch.int32), torch.tensor(True),
+        tc.camera, tc, tcfg.SegmentationParams(),
+    )
+    assert bool(seg.has_new_label)
+    labels = set(seg.full_segmentation.unique().tolist())
+    assert labels == {0, 1}
