@@ -12,7 +12,8 @@ CRF motion segmentation of 3 moving boxes, bench.py:60-99,124-127), and
 `-static -rl -cl` (fern relocalisation, local loop closure and the
 deformation graph at 256 nodes) at 640x480; then the remaining surfaces:
 '-p' ground-truth poses, `render_views` (the '-en'/'-ev' exports),
-checkpoints and hot tuning.
+checkpoints and hot tuning; and last the CLI itself over files on disk,
+scored by the port's own tools.
 Phases (each prints one line of findings and raises on failure; nothing is
 caught, nothing falls back to the CPU):
 
@@ -114,13 +115,25 @@ caught, nothing falls back to the CPU):
                   run parts from an untouched one from that frame on, and
                   stays within 1e-5 + 2e-6*step of the CPU given the same
                   calls
+ 18. cli          the dataset-to-score path, with cv2 and matplotlib
+                  unimportable: phase 7's 40 frames written as a 640x480
+                  PNG directory by the port's own writers (16-bit depth,
+                  object ids in a sibling directory), run through
+                  `cofusion_tpu_torch.cli.run` (what `python -m
+                  cofusion_tpu_torch` calls; CRF mode, -ep -es -em),
+                  scored by `cofusion_tpu_torch.tools.evaluate` (ATE,
+                  IoU) and viewed by `tools.view --no-png`: spawns,
+                  models exported, PNG decode ms and wall ms per frame,
+                  both kernels' launches (bilateral once a frame, splat at
+                  least once a frame after the first); then `-static -l`
+                  over a raw-RGB .klg of phase 4's frames (ATE < 1 cm)
 
 Each phase line ends with `at_s`, the seconds since the start.  The last
 stdout line is {"ok": true, "device": {...}}; before it, a
 {"kernels": [...]} line (`launches` from the `-static -rl -cl` path's run,
 `launches_multi` and `launches_static` from phases 7 and 4,
 `launches_gt_pose` from phase 14's static run, `launches_render` from one
-`render_views` call) and the
+`render_views` call, `launches_cli` from phase 18's CRF run) and the
 nvidia-smi name/power-limit line.  Exits non-zero without a result when CUDA is
 unavailable or any phase fails.  Imports only the port (cofusion_tpu_torch),
 which imports nothing of JAX.
@@ -1660,16 +1673,208 @@ def phase_hot_params(dev):
                            f"counts {card_c} vs {cpu_c}")
 
 
+# --- the dataset-to-score path: the CLI over files on disk, scored by the
+# port's own tools, with OpenCV and matplotlib unimportable
+CLI_FRAMES = 40
+CLI_STATIC_FRAMES = 30
+CLI_FLAGS = ["-run", "-q", "-d", "4.5", "-confG", "1.5", "-confO", "0.01", "-offset", "4"]
+
+
+def _bench_camera_track(n: int):
+    """The camera poses of make_multi_object_frames(cam, 12) replayed for
+    `n` frames: its 7 unique orbit poses played 0..6, 5..1 in a loop."""
+    from cofusion_tpu_torch.io.synthetic import camera_trajectory
+
+    uniq = camera_trajectory(7, kind="orbit")
+    order = list(range(7)) + list(range(5, 0, -1))
+    return [uniq[order[i % 12]] for i in range(n)]
+
+
+def _write_image_dataset(root, cam, frames, gt_ids):
+    """`frames` as an image directory in the layout of
+    tests/test_e2e_cli.py's `_write_dataset`, written by the port's own PNG
+    encoder: root/ds/Color####.png, Depth####.png (16-bit millimetres),
+    calibration.txt; the ground-truth object ids in root/gt_masks/Mask####.png
+    (a sibling directory, so the CLI runs the CRF path)."""
+    import numpy as np
+
+    from cofusion_tpu_torch.io.png import write_png
+
+    ds, masks = os.path.join(root, "ds"), os.path.join(root, "gt_masks")
+    os.makedirs(ds)
+    os.makedirs(masks)
+    for i, f in enumerate(frames):
+        write_png(os.path.join(ds, f"Color{i:04d}.png"), f["rgb"])
+        mm = np.clip(np.asarray(f["depth"]) * 1000.0, 0, 65535).astype(np.uint16)
+        write_png(os.path.join(ds, f"Depth{i:04d}.png"), mm)
+        write_png(os.path.join(masks, f"Mask{i:04d}.png"), gt_ids[i].astype(np.uint8))
+    with open(os.path.join(ds, "calibration.txt"), "w") as fh:
+        fh.write(f"{cam.fx} {cam.fy} {cam.cx} {cam.cy} {cam.width} {cam.height}\n")
+    return ds, masks
+
+
+def _score(export_dir, gt_npy, gt_masks=None, min_px=768) -> dict:
+    """`python -m cofusion_tpu_torch.tools.evaluate` on an export directory:
+    its JSON line."""
+    import contextlib
+    import io
+
+    from cofusion_tpu_torch.tools import evaluate
+
+    argv = ["--export", export_dir, "--gt-poses", gt_npy, "--no-align"]
+    if gt_masks:
+        argv += ["--gt-masks", gt_masks, "--min-px", str(min_px)]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = evaluate.main(argv)
+    if rc != 0:
+        raise RuntimeError(f"evaluate {argv} exited {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def _cli_run(argv, n_frames, device):
+    """`cofusion_tpu_torch.cli.run(argv)` (what `python -m cofusion_tpu_torch`
+    calls) with the kernel counts set to 0 just before it: (wall ms per
+    frame, launches, lifecycle events, the engine)."""
+    import torch
+
+    from cofusion_tpu_torch import cli
+
+    built = {}
+    build = cli.build_from_args
+
+    def listening(args):
+        reader, eng, opt = build(args)
+        built["engine"], built["events"] = eng, _listen(eng)
+        return reader, eng, opt
+
+    cli.build_from_args = listening
+    try:
+        if device != "cpu":
+            torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        rc = cli.run(argv + ["-device", device])
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_frames
+        launches = _read_counts()
+    finally:
+        cli.build_from_args = build
+    if rc != 0:
+        raise RuntimeError(f"cli.run({argv}) exited {rc}")
+    return wall_ms, launches, built["events"], built["engine"]
+
+
+def phase_cli(cam, unique, static_frames, static_gt, device="cuda", n=CLI_FRAMES, n_static=CLI_STATIC_FRAMES):
+    """A recorded dataset taken to a score with the port alone, through the
+    entry points a user calls, with `cv2` and `matplotlib` unimportable:
+    the bench scene (`unique`, make_multi_object_frames(cam, 12) with its
+    object ids) replayed to `n` frames and written as PNG files, run by the
+    CLI in the default multi-model CRF mode with '-ep -es -em', scored by
+    `tools.evaluate` against the scene's camera track and object masks and
+    viewed by `tools.view --no-png`; then `-static -l` over a raw-RGB .klg
+    of `static_frames[:n_static]`, scored alike.  Both kernels must launch
+    on each run: the bilateral once a frame, the splat at least once a
+    frame after the first.  Returns the multi run's launches."""
+    import shutil
+
+    import numpy as np
+
+    from cofusion_tpu_torch.io import png
+    from cofusion_tpu_torch.io.readers import write_klg
+    from cofusion_tpu_torch.tools import view
+
+    root = os.path.join(REPO, "cofusion_tpu_torch", "_build", "cli_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    frames = [unique[i % len(unique)] for i in range(n)]
+    gt_ids = [f["mask"] for f in frames]
+    t0 = time.perf_counter()
+    ds, gt_masks = _write_image_dataset(root, cam, frames, gt_ids)
+    gt_npy = os.path.join(root, "gt.npy")
+    np.save(gt_npy, np.stack(_bench_camera_track(n)))
+    write_s = time.perf_counter() - t0
+    hidden = {m: sys.modules.get(m) for m in ("cv2", "matplotlib")}
+    sys.modules.update(cv2=None, matplotlib=None)
+    try:
+        # the decoder alone, on this dataset: colour and depth of every frame
+        t0 = time.perf_counter()
+        for i in range(n):
+            png.imread(os.path.join(ds, f"Color{i:04d}.png"), "color")
+        color_ms = (time.perf_counter() - t0) * 1e3 / n
+        t0 = time.perf_counter()
+        for i in range(n):
+            png.imread(os.path.join(ds, f"Depth{i:04d}.png"), "anydepth")
+        depth_ms = (time.perf_counter() - t0) * 1e3 / n
+
+        out = os.path.join(root, "out")
+        wall_ms, launches, events, eng = _cli_run(
+            ["-dir", ds, "-pngScale", "0.001", *CLI_FLAGS, "-ep", "-es", "-em", "-exportdir", out],
+            n, device)
+        age = eng.state.models.age.cpu().numpy()
+        active = eng.stats()["active"]
+        spawned_at = {m: n - int(age[m]) for m in range(1, len(active)) if active[m]}
+        del eng
+        score = _score(out, gt_npy, gt_masks, min_px=(cam.width * cam.height) // 400)
+        exported = sorted(f for f in os.listdir(out) if f.startswith(("poses-", "cloud-")))
+        rc = view.main(["--export", out, "--no-png"])
+        html = os.path.getsize(os.path.join(out, "view.html")) if rc == 0 else 0
+
+        klg = os.path.join(root, "static.klg")
+        write_klg(klg, static_frames[:n_static], cam.width, cam.height)
+        cal = os.path.join(ds, "calibration.txt")
+        gt_static = os.path.join(root, "gt_static.npy")
+        np.save(gt_static, np.stack(static_gt[:n_static]))
+        out_s = os.path.join(root, "out_static")
+        s_wall_ms, s_launches, _, s_eng = _cli_run(
+            ["-l", klg, "-cal", cal, "-static", "-run", "-q", "-d", "4.5", "-ep", "-exportdir", out_s],
+            n_static, device)
+        del s_eng
+        s_score = _score(out_s, gt_static)
+    finally:
+        for m, mod in hidden.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+    spawns = sorted(f for f, kind, _ in events if kind == "new")
+    models = sorted({int(f.split("-")[1].split(".")[0]) for f in exported})
+    _phase("cli", dataset=f"{n} frames {cam.width}x{cam.height} PNG", mode="multi-model CRF",
+           flags=" ".join(CLI_FLAGS + ["-pngScale", "0.001", "-ep", "-es", "-em"]),
+           ate_rmse_m=score.get("ate_rmse_m"), mean_iou=score.get("mean_iou"),
+           per_object_iou={k: round(v["iou"], 4) for k, v in score.get("per_object_iou", {}).items()},
+           iou_gate="reported only (ROADMAP C1)", spawn_events_at=spawns,
+           spawn_frame_of_active_slot=spawned_at, models_exported=models, files=len(exported),
+           view_html_bytes=html, png_decode_ms_per_frame=f"{color_ms + depth_ms:.3f}",
+           png_decode_color_ms=f"{color_ms:.3f}", png_decode_depth16_ms=f"{depth_ms:.3f}",
+           wall_ms_per_frame=f"{wall_ms:.3f}", launches=launches, dataset_write_s=f"{write_s:.1f}",
+           cv2_and_matplotlib="unimportable")
+    _phase("cli_static", log=f"{n_static} frames raw-RGB .klg", ate_rmse_m=s_score["ate_rmse_m"],
+           traj_frames=s_score["traj_frames"], wall_ms_per_frame=f"{s_wall_ms:.3f}", launches=s_launches)
+    for name, got, frames_run in (("multi", launches, n), ("static", s_launches, n_static)):
+        if got["bilateral_filter"] != frames_run or got["splat_window"] < frames_run - 1:
+            raise RuntimeError(f"CLI {name} run: kernel launches {got}, expected the bilateral "
+                               f"{frames_run} times and the splat at least {frames_run - 1}")
+    if "ate_rmse_m" not in score or score.get("traj_frames") != n or "mean_iou" not in score:
+        raise RuntimeError(f"the CLI run could not be scored: {score}")
+    if 0 not in models or rc != 0 or not html:
+        raise RuntimeError(f"exports {exported}, view rc {rc}")
+    if s_score["traj_frames"] != n_static or not s_score["ate_rmse_m"] < 0.01:
+        raise RuntimeError(f"static CLI run: {s_score} (ATE must be below 1 cm)")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR",
                     help="also time the kernels built from the .cu files in DIR")
     ap.add_argument("--only", metavar="GROUPS",
                     help="run only these comma-separated groups of phases (kernels, static, "
-                         "multi, loop, surfaces) and print no result lines: for development")
+                         "multi, loop, surfaces, cli) and print no result lines: for development")
     opts = ap.parse_args(argv)
     groups = (set(opts.only.split(",")) if opts.only
-              else {"kernels", "static", "multi", "loop", "surfaces"})
+              else {"kernels", "static", "multi", "loop", "surfaces", "cli"})
     import torch
 
     if not torch.cuda.is_available():
@@ -1684,8 +1889,12 @@ def main(argv=None) -> int:
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     dev = resolve_device("cuda")
     smi = _nvidia_smi()
+    import importlib.util
+
     _phase("device", nvidia_smi=repr(smi), name=repr(torch.cuda.get_device_name(0)),
-           count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda)
+           count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda,
+           cv2_importable=importlib.util.find_spec("cv2") is not None,
+           matplotlib_importable=importlib.util.find_spec("matplotlib") is not None)
 
     lib = _build.load()
     ptxas = [ln.strip() for ln in lib.log.splitlines() if "registers" in ln or "bytes smem" in ln]
@@ -1740,6 +1949,10 @@ def main(argv=None) -> int:
         del static_eng
         phase_checkpoint(dev, frames)
         phase_hot_params(dev)
+
+    if "cli" in groups:
+        unique = make_multi_object_frames(cam, 12, masks=True)
+        launches_cli = phase_cli(cam, unique, frames, gt)
     _phase("done", seconds=f"{time.perf_counter() - _T0:.1f}")
 
     if opts.only:
@@ -1752,7 +1965,7 @@ def main(argv=None) -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "launches_multi": launches_multi[name],
          "launches_static": launches_static[name], "launches_gt_pose": launches_gt_pose[name],
-         "launches_render": launches_render[name], **kern[name]}
+         "launches_render": launches_render[name], "launches_cli": launches_cli[name], **kern[name]}
         for name, (src, rep) in sources.items()
     ]
     print(json.dumps({"kernels": kernels}))

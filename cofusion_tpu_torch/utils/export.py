@@ -4,7 +4,7 @@ formats as the JAX exporter (and the reference's export hooks,
 Core/CoFusion.cpp:646-783), so dataset-tools scripts read either, and
 `read_ply` reads them back; and the segmentation masks ('-es'), colourised
 label images ('-el'), normal maps ('-en') and viewports ('-ev') as 8-bit
-PNGs, written by a small zlib encoder of the port's own that encodes as
+PNGs, written by the port's own encoder (`io/png.py`), which encodes as
 cv2.imwrite does (libpng's settings there), so for the same arrays the
 files equal the JAX exporter's byte for byte.  Numpy plus the port's lie;
 no JAX, no OpenCV.
@@ -13,12 +13,11 @@ no JAX, no OpenCV.
 from __future__ import annotations
 
 import os
-import struct
-import zlib
 
 import numpy as np
 import torch
 
+from cofusion_tpu_torch.io.png import write_png
 from cofusion_tpu_torch.ops import lie
 
 
@@ -154,50 +153,6 @@ def ate_rmse(est, gt, align: bool = True) -> float:
         R = (U @ S @ Vt).T
         p = (p - mp) @ R.T + mq
     return float(np.sqrt(np.mean(np.sum((p - q) ** 2, axis=1))))
-
-
-def write_png(path: str, img: np.ndarray) -> None:
-    """8-bit grayscale (H, W) or RGB (H, W, 3) image as a PNG file, encoded
-    as cv2.imwrite encodes it by default: the Sub filter on every row (None
-    for a one-pixel-wide image),
-    deflate at level 1 with the run-length strategy, libpng's window for
-    small images, IDAT chunks of 8192 bytes."""
-    img = np.ascontiguousarray(img, dtype=np.uint8)
-    h, w = img.shape[:2]
-    bpp = 3 if img.ndim == 3 else 1
-    rows = img.reshape(h, w * bpp)
-    sub = rows.copy()
-    sub[:, bpp:] = rows[:, bpp:] - rows[:, :-bpp]  # uint8 wraps: mod 256
-    # libpng drops Sub for a one-pixel-wide image (filter None)
-    kind = np.full((h, 1), 1 if w > 1 else 0, np.uint8)
-    raw = np.concatenate([kind, sub], axis=1).tobytes()
-    # libpng narrows the deflate window while the image fits in half of it
-    # (png_deflate_claim), then names the smallest window the data fits in
-    # in the stream's header (optimize_cmf)
-    wbits = 15
-    if len(raw) <= 16384:
-        while len(raw) + 262 <= 1 << (wbits - 1):
-            wbits -= 1
-    z = zlib.compressobj(1, zlib.DEFLATED, max(wbits, 9), 8, zlib.Z_RLE)
-    idat = bytearray(z.compress(raw) + z.flush())
-    if len(raw) <= 16384:
-        cinfo = idat[0] >> 4
-        while cinfo > 0 and len(raw) <= 1 << (cinfo + 7):
-            cinfo -= 1
-        idat[0] = (idat[0] & 0x0F) | (cinfo << 4)
-        flg = idat[1] & 0xE0
-        idat[1] = flg + 0x1F - ((idat[0] << 8) + flg) % 0x1F
-    idat = bytes(idat)
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2 if bpp == 3 else 0, 0, 0, 0)))
-        for i in range(0, len(idat), 8192):
-            f.write(chunk(b"IDAT", idat[i:i + 8192]))
-        f.write(chunk(b"IEND", b""))
 
 
 def export_mask_png(path: str, mask: np.ndarray) -> None:

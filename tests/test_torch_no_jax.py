@@ -1,8 +1,10 @@
 """The port stands without JAX: no module of cofusion_tpu_torch imports it,
-the package, its engine, its CLI, its readers, its ground-truth poses, its
-checkpoints and chip_smoke.py import in a process where `import jax` fails
-and import nothing of the JAX package either, and on CPU tensors the kernel
-dispatchers never reach the CUDA kernel loader."""
+the package, its engine, its CLI, its readers and PNG codec, its
+ground-truth poses, its checkpoints, its dataset tools and chip_smoke.py
+import in a process where `import jax` fails and import nothing of the JAX
+package either, nor OpenCV or matplotlib (PNG datasets are read, and runs
+scored, without them), and on CPU tensors the kernel dispatchers never
+reach the CUDA kernel loader."""
 
 import os
 import pathlib
@@ -41,10 +43,12 @@ def test_no_source_file_imports_jax():
      "cofusion_tpu_torch.io.synthetic", "cofusion_tpu_torch.io.readers",
      "cofusion_tpu_torch.ops.segmentation", "cofusion_tpu_torch.ops.ferns",
      "cofusion_tpu_torch.ops.deformation", "cofusion_tpu_torch.ops.local_loop",
-     "cofusion_tpu_torch.io.ground_truth", "cofusion_tpu_torch.utils.checkpoint", "chip_smoke"],
+     "cofusion_tpu_torch.io.ground_truth", "cofusion_tpu_torch.utils.checkpoint",
+     "cofusion_tpu_torch.io.png", "cofusion_tpu_torch.tools", "cofusion_tpu_torch.tools.evaluate",
+     "cofusion_tpu_torch.tools.view", "chip_smoke"],
 )
 def test_imports_with_jax_blocked(module):
-    banned = ("jax", "cofusion_tpu")
+    banned = ("jax", "cofusion_tpu", "cv2", "matplotlib")
     code = (
         "import sys; sys.modules['jax'] = None\n"
         f"import importlib; importlib.import_module({module!r})\n"
