@@ -12,8 +12,9 @@ CRF motion segmentation of 3 moving boxes, bench.py:60-99,124-127), and
 `-static -rl -cl` (fern relocalisation, local loop closure and the
 deformation graph at 256 nodes) at 640x480; then the remaining surfaces:
 '-p' ground-truth poses, `render_views` (the '-en'/'-ev' exports),
-checkpoints and hot tuning; and last the CLI itself over files on disk,
-scored by the port's own tools.
+checkpoints and hot tuning; the CLI itself over files on disk, scored by
+the port's own tools; and last the static and bench paths on an engine
+state sharded over a 4-device mesh.
 Phases (each prints one line of findings and raises on failure; nothing is
 caught, nothing falls back to the CPU):
 
@@ -127,13 +128,27 @@ caught, nothing falls back to the CPU):
                   both kernels' launches (bilateral once a frame, splat at
                   least once a frame after the first); then `-static -l`
                   over a raw-RGB .klg of phase 4's frames (ATE < 1 cm)
+ 19. sharded      the engine state sharded over a 4-device mesh
+                  (`cofusion_tpu_torch.parallel`: both tiers' surfel axes,
+                  virtual on one card): phase 4's 30 frames and the bench
+                  workload's first 26 (its first spawn, then 6 more), each
+                  run's last frame at time delta 0, against the unsharded
+                  runs of the same call: poses, both tiers, counts, flags,
+                  events and masks bit-identical; bilateral and splat once a
+                  frame; the splat bit-equal to its plain version on the
+                  sharded step's own combined index maps; kernel launches
+                  and device busy ms of 1 more frame, steady ms per frame
+                  and each run's own peak memory (frame 1 with the
+                  sharding's copy, and the frames after), sharded and
+                  unsharded
 
 Each phase line ends with `at_s`, the seconds since the start.  The last
 stdout line is {"ok": true, "device": {...}}; before it, a
 {"kernels": [...]} line (`launches` from the `-static -rl -cl` path's run,
 `launches_multi` and `launches_static` from phases 7 and 4,
 `launches_gt_pose` from phase 14's static run, `launches_render` from one
-`render_views` call, `launches_cli` from phase 18's CRF run) and the
+`render_views` call, `launches_cli` from phase 18's CRF run,
+`launches_sharded` from phase 19's sharded bench run) and the
 nvidia-smi name/power-limit line.  Exits non-zero without a result when CUDA is
 unavailable or any phase fails.  Imports only the port (cofusion_tpu_torch),
 which imports nothing of JAX.
@@ -1865,16 +1880,243 @@ def phase_cli(cam, unique, static_frames, static_gt, device="cuda", n=CLI_FRAMES
     return launches
 
 
+# --- the sharded step (cofusion_tpu_torch/parallel): both tiers' surfel
+# axes over a 4-device mesh, bit for bit the unsharded step
+SHARDS = 4
+SHARD_MULTI_FRAMES = 26  # the bench workload through its first spawn (frame 19) and 6 more
+SHARD_MULTI_WINDOW = 20  # frames 21-26: object slots track and fuse
+
+
+def _device_profile(eng, frame):
+    """Kernels launched and device busy ms (summed over the cards) for one
+    more frame, from torch.profiler's device records alone (memory copies
+    and sets are not counted as launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.process_frame(frame)
+        _sync_all()
+    cuda = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = sum(e.count for e in cuda if not e.key.startswith(("Memcpy", "Memset")))
+    return kernels, sum(e.self_device_time_total for e in cuda) / 1e3
+
+
+def _sync_all():
+    """Wait for every card (a sharded step queues work on each shard's)."""
+    import torch
+
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+
+
+def _allocated(peak: bool = False) -> int:
+    """Bytes allocated (or the peak since the last reset) over every card."""
+    import torch
+
+    fn = torch.cuda.max_memory_allocated if peak else torch.cuda.memory_allocated
+    return sum(fn(d) for d in range(torch.cuda.device_count()))
+
+
+def _reset_peaks():
+    import torch
+
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def _sharded_run(make_engine, frames, start, mesh=None):
+    """Frames through process_frame (sharded after the first where `mesh`
+    is given), the last at time delta 0 (its surfels age out into the
+    stable tier); frames start+1..N under the sync check, timed as one
+    window.  Returns the engine, its kernel launches, events, window ms per
+    frame, its own peak memory (over the first frame with the sharding's
+    copy of the state, and over the frames after) and the combined index
+    maps the step before the last one splatted."""
+    import torch
+
+    from cofusion_tpu_torch.ops import rasterize as rz
+    from cofusion_tpu_torch.parallel import shard_engine_state
+
+    eng = make_engine()
+    events = _listen(eng)
+    _sync_all()
+    base = _allocated()
+    _reset_peaks()
+    last = {}
+    splat = rz.splat_from_imap
+
+    def recorded(imap, cam, cfg, conf_threshold=None):
+        # kept: the maps of the frame before the last (the time-delta-0
+        # frame renders only its own new, unconfident surfels)
+        last["before"] = last.get("now")
+        last["now"] = dict(imap=imap, conf_threshold=conf_threshold)
+        return splat(imap, cam, cfg, conf_threshold=conf_threshold)
+
+    _zero_counts()
+    rz.splat_from_imap = recorded
+    try:
+        for i, f in enumerate(frames):
+            if i == start:
+                _sync_all()
+                t0 = time.perf_counter()
+                torch.cuda.set_sync_debug_mode("error")
+            if i == len(frames) - 1:
+                eng._fparams["time_delta"] = 0
+            eng.process_frame(f)
+            if i == 0:
+                if mesh is not None:
+                    eng.state = shard_engine_state(eng.state, mesh)
+                _sync_all()
+                peak_first = _allocated(peak=True) - base
+                _reset_peaks()
+        torch.cuda.set_sync_debug_mode("default")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        rz.splat_from_imap = splat
+    _sync_all()
+    window_ms = (time.perf_counter() - t0) * 1e3 / (len(frames) - start)
+    launches = _read_counts()
+    peak = (peak_first, _allocated(peak=True) - base)
+    eng._fparams["time_delta"] = eng.cfg.time_delta
+    eng.flush_lifecycle()
+    return dict(engine=eng, launches=launches, events=events, window_ms=window_ms, peak=peak,
+                maps=last["before"])
+
+
+def _whole_state(eng):
+    """The engine's state with both tiers gathered, every tensor on the host."""
+    import torch
+
+    from cofusion_tpu_torch.parallel import unshard_engine_state
+
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            return x.cpu()
+        if isinstance(x, tuple):
+            return type(x)(*(host(a) for a in x))
+        return x
+
+    return host(unshard_engine_state(eng.state))
+
+
+def _same_state(a, b, path="state"):
+    """Names of the leaves of two host states that differ."""
+    import torch
+
+    if isinstance(a, tuple):
+        names = getattr(a, "_fields", range(len(a)))
+        return [d for k, x, y in zip(names, a, b) for d in _same_state(x, y, f"{path}.{k}")]
+    if isinstance(a, torch.Tensor):
+        return [] if a.dtype == b.dtype and torch.equal(a, b) else [path]
+    return [] if a == b else [path]
+
+
+def _splat_on_maps(maps, cfg, cam):
+    """The splat kernel against its plain version, bit for bit, on combined
+    index maps the sharded step splatted (as splat_from_imap passes them;
+    the check's launch is not the path's)."""
+    import torch
+
+    from cofusion_tpu_torch.ops import cuda_splat
+
+    imap, thr = maps["imap"], maps["conf_threshold"]
+    valid = imap.valid & (imap.vert_conf[..., 3] >= thr.reshape(-1, 1, 1))
+    args = (imap.vert_conf[..., :3], imap.normal_rad[..., :3], imap.normal_rad[..., 3], valid,
+            cfg.splat_radius, (cam.fx, cam.fy, cam.cx, cam.cy))
+    n = cuda_splat.splat_window_cuda.launches
+    z_k, tap_k = cuda_splat.splat_window_cuda(*args)
+    cuda_splat.splat_window_cuda.launches = n
+    z_p, tap_p = cuda_splat.splat_window_plain(*args)
+    torch.cuda.synchronize()
+    mism = int((tap_k != tap_p).sum())
+    row = dict(shape=tuple(valid.shape), valid_pixels=int(valid.sum()), tap_mismatches=mism,
+               max_abs_z_err=_max_err(z_k, z_p))
+    if mism or not torch.equal(z_k, z_p) or not row["valid_pixels"]:
+        raise RuntimeError(f"splat kernel on the sharded step's maps: {row}")
+    return row
+
+
+def phase_sharded(dev, static_frames, crf_frames):
+    """The static cell's 30 frames and the bench workload's first 26 frames
+    (its first spawn at frame 19, then 6 more; each run's last frame at
+    time delta 0) on a 4-shard mesh, against the unsharded runs in the same
+    call: every pose, both tiers of every slot, counts, flags, lifecycle
+    events and (CRF) masks bit-identical; the bilateral and splat kernels
+    once a frame; the splat bit-equal to its plain version on the sharded
+    step's own combined maps; kernel launches, device busy ms, steady ms
+    per frame and the run's own peak memory, sharded and unsharded.
+    Returns the sharded bench run's kernel launches."""
+    import numpy as np
+    import torch
+
+    from cofusion_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(SHARDS, "cuda", virtual=torch.cuda.device_count() < SHARDS)
+    cards = [f"{d}: {torch.cuda.get_device_name(d)}" for d in mesh.distinct_devices]
+    _phase("sharded", shards=SHARDS, mesh=[str(d) for d in mesh.devices], distinct_cards=cards,
+           virtual=torch.cuda.device_count() < SHARDS)
+    cells = (("static", lambda: _engine(dev), static_frames, 2),
+             ("bench", lambda: _multi_engine(dev), crf_frames[:SHARD_MULTI_FRAMES], SHARD_MULTI_WINDOW))
+    launches_bench = None
+    for cell, make, frames, start in cells:
+        n = len(frames)
+        runs = {}
+        for kind, m in (("unsharded", None), ("sharded", mesh)):
+            run = _sharded_run(make, frames, start, m)
+            eng = run["engine"]
+            if run["launches"] != {"bilateral_filter": n, "splat_window": n}:
+                raise RuntimeError(f"[sharded] {cell} {kind}: kernel launches {run['launches']}, "
+                                   f"expected {n} each")
+            run.update(state=_whole_state(eng), poses=[p for _, p in eng.pose_log],
+                       events=list(run["events"]),
+                       masks=dict(eng.drain_segmentation(flush=True)) if cell == "bench" else {})
+            if m is not None:
+                run["splat"] = _splat_on_maps(run["maps"], eng.cfg, eng.cam)
+            run["kernels"], run["busy_ms"] = _device_profile(eng, frames[-1])
+            runs[kind] = run
+            del eng, run["engine"], run["maps"]
+            torch.cuda.empty_cache()
+        ref, got = runs["unsharded"], runs["sharded"]
+        diff = _same_state(got["state"], ref["state"])
+        poses_equal = all(np.array_equal(a, b) for a, b in zip(got["poses"], ref["poses"]))
+        masks_equal = got["masks"].keys() == ref["masks"].keys() and all(
+            np.array_equal(got["masks"][t], ref["masks"][t]) for t in ref["masks"])
+        st = ref["state"].models
+        _phase("sharded", cell=cell, frames=n, window=f"{start + 1}-{n}",
+               launches_per_frame={k: v / n for k, v in got["launches"].items()},
+               kernel_launches_per_frame=f"{got['kernels']} sharded / {ref['kernels']} unsharded",
+               device_busy_ms_per_frame=f"{got['busy_ms']:.3f} / {ref['busy_ms']:.3f}",
+               steady_ms_per_frame=f"{got['window_ms']:.3f} / {ref['window_ms']:.3f}",
+               own_peak_bytes_frame1=f"{got['peak'][0]} / {ref['peak'][0]}",
+               own_peak_bytes_after=f"{got['peak'][1]} / {ref['peak'][1]}",
+               state="bit-identical" if not diff else f"differs at {diff[:6]}",
+               poses="bit-identical" if poses_equal else "differ",
+               masks=("bit-identical" if masks_equal else "differ") if cell == "bench" else "n/a",
+               events=got["events"], events_equal=got["events"] == ref["events"],
+               active=st.active.int().tolist(), active_count=st.store.count.tolist(),
+               stable_count=st.stable.count.tolist(), sync_debug=f"error on frames {start + 1}-{n}")
+        if cell == "bench":
+            _phase("sharded", cell=cell, splat_on_sharded_maps=got["splat"], bar="bit-equal")
+            launches_bench = got["launches"]
+        if diff or not poses_equal or not masks_equal or got["events"] != ref["events"]:
+            raise RuntimeError(f"[sharded] {cell}: the sharded run differs from the unsharded one")
+        if not (st.stable.count > 0).any() or (cell == "bench" and not st.active[1:].any()):
+            raise RuntimeError(f"[sharded] {cell}: no expel into the stable tier, or no object slot")
+    return launches_bench
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR",
                     help="also time the kernels built from the .cu files in DIR")
     ap.add_argument("--only", metavar="GROUPS",
                     help="run only these comma-separated groups of phases (kernels, static, "
-                         "multi, loop, surfaces, cli) and print no result lines: for development")
+                         "multi, loop, surfaces, cli, sharded) and print no result lines: for "
+                         "development")
     opts = ap.parse_args(argv)
     groups = (set(opts.only.split(",")) if opts.only
-              else {"kernels", "static", "multi", "loop", "surfaces", "cli"})
+              else {"kernels", "static", "multi", "loop", "surfaces", "cli", "sharded"})
     import torch
 
     if not torch.cuda.is_available():
@@ -1953,6 +2195,11 @@ def main(argv=None) -> int:
     if "cli" in groups:
         unique = make_multi_object_frames(cam, 12, masks=True)
         launches_cli = phase_cli(cam, unique, frames, gt)
+
+    if "sharded" in groups:
+        unique = make_multi_object_frames(cam, 12)
+        crf_frames = [dict(unique[i % 12], mask=None, timestamp=i) for i in range(SHARD_MULTI_FRAMES)]
+        launches_sharded = phase_sharded(dev, frames, crf_frames)
     _phase("done", seconds=f"{time.perf_counter() - _T0:.1f}")
 
     if opts.only:
@@ -1965,7 +2212,8 @@ def main(argv=None) -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "launches_multi": launches_multi[name],
          "launches_static": launches_static[name], "launches_gt_pose": launches_gt_pose[name],
-         "launches_render": launches_render[name], "launches_cli": launches_cli[name], **kern[name]}
+         "launches_render": launches_render[name], "launches_cli": launches_cli[name],
+         "launches_sharded": launches_sharded[name], **kern[name]}
         for name, (src, rep) in sources.items()
     ]
     print(json.dumps({"kernels": kernels}))

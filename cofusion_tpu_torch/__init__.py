@@ -11,7 +11,9 @@ Ported: the `-static` (single global model, ElasticFusion mode) frame path
 and the multi-model path (object models segmented by ground-truth masks or by
 the motion-cue CRF, masked batched tracking, the model lifecycle) — bilateral
 filter (CUDA kernel), tracking, segmentation, fuse/clean and the window
-splat (CUDA kernel).  See README.md and ROADMAP.md for what is still to come.
+splat (CUDA kernel); and the step on an engine state whose surfel axis is
+sharded over a device mesh (`parallel/`).  See README.md and ROADMAP.md
+for what is still to come.
 """
 
 __version__ = "0.1.0"

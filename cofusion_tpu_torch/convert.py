@@ -24,6 +24,7 @@ from cofusion_tpu_torch.engine import EngineState, ModelState
 from cofusion_tpu_torch.models.surfel_model import SurfelStore
 from cofusion_tpu_torch.ops.ferns import FernDB
 from cofusion_tpu_torch.ops.rasterize import SplatMap
+from cofusion_tpu_torch.parallel.mesh import unshard_engine_state
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -60,8 +61,9 @@ def state_from_numpy(tree, device: str | torch.device = "cpu") -> EngineState:
 
 
 def state_to_numpy(state: EngineState) -> EngineState:
-    """The same nested structure with numpy leaves (the tick as int32)."""
-    models = state.models
+    """The same nested structure with numpy leaves (the tick as int32); a
+    sharded state's tiers gathered whole."""
+    models = unshard_engine_state(state).models
     m = ModelState(
         store_to_numpy(models.store),
         store_to_numpy(models.stable),

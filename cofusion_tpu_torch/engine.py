@@ -32,6 +32,12 @@ reads the active flags back every 4 frames through a pinned double buffer,
 one cadence late, so no frame waits on the device.  `stats()` and the
 pose-log readers synchronise on demand.
 
+A state sharded over a device mesh (`parallel.shard_engine_state`: both
+tiers' surfel axes split, everything else whole on the mesh's first device)
+takes the same step, its per-surfel passes shard by shard, bit for bit
+the unsharded step; '-rl', '-cl' and `render_views` refuse it (ROADMAP
+A15b).
+
 The state keeps the JAX engine's layout — a leading (M,) model axis on every
 per-model leaf, the same fields in the same order — so convert.py carries a
 JAX state across field for field.  The tick is a host int: the host counts
@@ -385,6 +391,15 @@ def _step(
     models = state.models
     dev = rgb.device
     depth_cutoff = fparams["depth_cutoff"]
+    if isinstance(models.store, sm.ShardedStore):
+        if use_reloc or close_loops:
+            raise NotImplementedError(
+                "relocalisation ('-rl') and loop closure ('-cl') on a sharded state are not "
+                "ported yet (ROADMAP A15b)"
+            )
+        if models.store.count.device != dev:
+            raise ValueError(f"the state is sharded from {models.store.count.device}, "
+                             f"the frame is on {dev}")
 
     # --- preprocess
     intensity = pp.rgb_to_intensity(rgb)
@@ -534,14 +549,8 @@ def _step(
         # its map lives in the spawn-frame camera coordinates) with the
         # initial object threshold
         rs = is_new_slot | wipe
-        models_store = models_store._replace(
-            valid=models_store.valid & ~rs[:, None],
-            count=torch.where(rs, 0, models_store.count),
-        )
-        models_stable = models_stable._replace(
-            valid=models_stable.valid & ~rs[:, None],
-            count=torch.where(rs, 0, models_stable.count),
-        )
+        models_store = _reset_slots(models_store, rs)
+        models_stable = _reset_slots(models_stable, rs)
         eye4 = torch.eye(4, dtype=new_pose.dtype, device=dev)[None]
         new_pose = torch.where(rs[:, None, None], eye4, new_pose)
         new_conf_threshold = torch.where(rs, fparams["conf_object"], new_conf_threshold)
@@ -698,6 +707,46 @@ def _step_gt_pose(state: EngineState, rgb, depth, mask, filtered, intensity, fpa
     return new_state, outputs
 
 
+def _reset_slots(stores, rs: torch.Tensor):
+    """The (M, N) stores with the slots where `rs` emptied (valid false,
+    count 0), shard by shard where sharded."""
+    if not isinstance(stores, sm.ShardedStore):
+        return stores._replace(valid=stores.valid & ~rs[:, None], count=torch.where(rs, 0, stores.count))
+    shards = tuple(sh._replace(valid=sh.valid & ~sm.to_device(rs, sh.px.device)[:, None])
+                   for sh in stores.shards)
+    return sm.ShardedStore(shards, torch.where(rs, 0, stores.count))
+
+
+def _slot_store(stores, m: int, cap: int, count):
+    """Slot m's rows [:cap] of the (M, N) stores as a store of its own
+    (views); of a sharded store, the shards that reach into the slice."""
+    if not isinstance(stores, sm.ShardedStore):
+        return SurfelStore(*(getattr(stores, f)[m, :cap] for f in sm.DATA_FIELDS), count=count)
+    shards = tuple(
+        SurfelStore(*(getattr(sh, f)[m, :min(sh.capacity, cap - off)] for f in sm.DATA_FIELDS),
+                    count=None)
+        for sh, off in zip(stores.shards, stores.offsets) if off < cap
+    )
+    return sm.ShardedStore(shards, count)
+
+
+def _write_slot(stores, m: int, out) -> None:
+    """Copy a slot's new rows (a `_slot_store` layout) into the (M, N)
+    stores in place."""
+    for dst, src in zip(sm.shards_of(stores)[0], sm.shards_of(out)[0]):
+        for f in sm.DATA_FIELDS:
+            getattr(dst, f)[m, :src.capacity].copy_(getattr(src, f))
+
+
+def _with_model_axis(store):
+    """A one-model store with a new leading (1,) model axis (views)."""
+    if not isinstance(store, sm.ShardedStore):
+        return _stack([store])
+    shards = tuple(SurfelStore(*(getattr(sh, f)[None] for f in sm.DATA_FIELDS), count=None)
+                   for sh in store.shards)
+    return sm.ShardedStore(shards, store.count[None])
+
+
 def _empty_imap(H: int, W: int, dev) -> rz.IndexMap:
     z1 = torch.zeros((H, W), dtype=torch.float32, device=dev)
     z4 = torch.zeros((H, W, 4), dtype=torch.float32, device=dev)
@@ -731,12 +780,19 @@ def _fuse_clean_all(
     unless `global_may_idle` (relocalisation: fusion pauses while lost).
     With more than one slot the results are written back into the stacked
     leaves in place; the global model alone returns its new store.
-    `weight` is a list of per-slot 0-d weights."""
+    `weight` is a list of per-slot 0-d weights.
+
+    Sharded stores (cofusion_tpu_torch/parallel) take the same route: each
+    op renders, fuses, cleans and compacts shard by shard and combines on
+    `depth`'s device.  Under block ownership an object slot's
+    [:object_active_capacity] rows live in the first shard(s), as under the
+    JAX package's P(None, "d"), so those shards do the object slots' work
+    and the others idle through it."""
     M = int(new_pose.shape[0])
     H, W = cam.height, cam.width
     dev = depth.device
     time_delta = fparams["time_delta"]
-    A = int(stores.px.shape[1])
+    A = stores.capacity
     A_obj = min(cfg.object_active_capacity, A)
     if M > 1 or global_may_idle:
         empty_blk = sm.empty_store(cfg.expel_block, dev)
@@ -745,9 +801,8 @@ def _fuse_clean_all(
     counts, blks, imaps = [], [], []
     for m in range(M):
         cap = A if m == 0 else A_obj
-        store = SurfelStore(
-            *(getattr(stores, f)[m, :cap] for f in sm.DATA_FIELDS),
-            count=stores.count[m] if m == 0 else torch.clamp(stores.count[m], max=cap),
+        store = _slot_store(
+            stores, m, cap, stores.count[m] if m == 0 else torch.clamp(stores.count[m], max=cap)
         )
         pose = new_pose[m]
         max_d = model_max_depth[m] if M > 1 else fparams["depth_cutoff"]
@@ -767,52 +822,71 @@ def _fuse_clean_all(
             mask=mask, mask_id=model_ids[m],
         )
         # age-out migration: surfels past the window move to the stable tier
-        out, blk = sm.expel_split(
-            cleaned, keep,
-            (cleaned.last_time > 0) & ((float(tick) - cleaned.last_time) > float(time_delta)),
-            cfg.expel_block,
+        aged = sm.per_shard(
+            cleaned, lambda s: (s.last_time > 0) & ((float(tick) - s.last_time) > float(time_delta))
         )
+        out, blk = sm.expel_split(cleaned, keep, aged, cfg.expel_block)
         if m > 0 or global_may_idle:
             on = active_fuse[m]
-            out = _select(on, out, store)
+            out = sm.select(on, out, store)
             blk = _select(on, blk, empty_blk)
             imap2 = _select(on, imap2, empty_imap)
         if M > 1:
-            for f in sm.DATA_FIELDS:
-                getattr(stores, f)[m, :cap].copy_(getattr(out, f))
+            _write_slot(stores, m, out)
         counts.append(out.count)
         blks.append(blk)
         imaps.append(imap2)
     if M > 1:
         new_stores = stores._replace(count=torch.stack(counts))
     else:
-        new_stores = _stack([out])
+        new_stores = _with_model_axis(out)
     return new_stores, _append_expel_blocks(stables, _stack(blks), cfg), _stack(imaps)
 
 
-def _append_expel_blocks(stables: SurfelStore, blks: SurfelStore, cfg) -> SurfelStore:
+def _append_expel_blocks(stables, blks: SurfelStore, cfg):
     """Append each model's expel block into its stable ring with one
     contiguous write per attribute, IN PLACE.  `count` is the monotone
     total-appended cursor and the write offset is count mod S; when the tail
     is shorter than a block the cursor skips to the next S boundary, so on
     overflow the oldest rows are overwritten round-robin.  The offset is
     device index arithmetic (`off + arange(B)`), never read back; when
-    nothing is expelled the window is written back unchanged."""
+    nothing is expelled the window is written back unchanged.
+
+    Into a sharded ring the B rows may straddle shards: each shard writes
+    at its local rows clamped into its range, so the rows outside it land
+    on its first or last row with that row's own new value (the run's row
+    there, or the old one), and duplicate writes agree."""
     M = int(stables.count.shape[0])
     S = int(stables.capacity)
     B = int(cfg.expel_block)
+    sharded = isinstance(stables, sm.ShardedStore)
+    shards, offsets = sm.shards_of(stables)
     counts = []
     for m in range(M):
         n_ex = blks.count[m].to(torch.int64)
         cursor = stables.count[m].to(torch.int64)
         off_raw = torch.remainder(cursor, S)
         base = torch.where(off_raw + B > S, cursor - off_raw + S, cursor)
-        rows_at = torch.remainder(base, S) + torch.arange(B, device=cursor.device)
+        r0 = torch.remainder(base, S)
+        rows_at = r0 + torch.arange(B, device=cursor.device)
         write = n_ex > 0
-        for f in sm.DATA_FIELDS:
-            leaf = getattr(stables, f)[m]
-            rows = torch.where(write, getattr(blks, f)[m], leaf.index_select(0, rows_at))
-            leaf.index_copy_(0, rows_at, rows)
+        for sh, off in zip(shards, offsets):
+            dk = sh.px.device
+            at, wr = sm.to_device(rows_at, dk), sm.to_device(write, dk)
+            if sharded:
+                at = torch.clamp(at - off, 0, sh.capacity - 1)
+                run = at + off - sm.to_device(r0, dk)  # each row's place in the block
+                in_run = (run >= 0) & (run < B)
+                src = torch.clamp(run, 0, B - 1)
+            for f in sm.DATA_FIELDS:
+                leaf = getattr(sh, f)[m]
+                old = leaf.index_select(0, at)
+                new = sm.to_device(getattr(blks, f)[m], dk)
+                if sharded:
+                    rows = torch.where(in_run, torch.where(wr, new.index_select(0, src), old), old)
+                else:
+                    rows = torch.where(wr, new, old)
+                leaf.index_copy_(0, at, rows)
         counts.append(torch.where(write, base + n_ex, cursor).to(torch.int32))
     return stables._replace(count=torch.stack(counts))
 
@@ -1327,6 +1401,10 @@ class CoFusion:
         (H, W): a blocking read-back."""
         st, cam, cfg = self.state, self.cam, self.cfg
         models = st.models
+        if isinstance(models.store, sm.ShardedStore):
+            raise NotImplementedError(
+                "render_views on a sharded state is not ported yet (ROADMAP A15b)"
+            )
         pose0, conf0 = models.pose[0], models.conf_threshold[0]
         dc = float(self.fusion.depth_cutoff)
         view = rz.splat_merge(
@@ -1344,6 +1422,7 @@ class CoFusion:
     def download_model(self, model: int = 0) -> dict:
         """Whole two-tier map of one model (Model::downloadMap): stable (old)
         surfels first, then the active tier."""
-        d_act = sm.download(_unbatch(self.state.models.store, model))
-        d_stb = sm.download_masked(_unbatch(self.state.models.stable, model))
+        models = self.state.models
+        d_act = sm.download(_unbatch(sm.gathered(models.store), model))
+        d_stb = sm.download_masked(_unbatch(sm.gathered(models.stable), model))
         return {k: np.concatenate([d_stb[k], d_act[k]], axis=0) for k in d_act}

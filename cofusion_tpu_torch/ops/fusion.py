@@ -9,6 +9,14 @@ fixed tap order), never a float `index_add_` whose CUDA atomics would add in
 a different order on every run; new surfels are appended contiguously after
 a stable argsort.  Device-valued offsets (the append cursor) become index
 arithmetic (`count + arange`), never a host read.
+
+A sharded store (models.surfel_model.ShardedStore) fuses and cleans with
+the image-side work done once, on the count's device, and the per-surfel
+work shard by shard on the shards' devices: every surfel compares the index
+render with its global row, appended rows land in the shard that owns
+their global row, and each surfel reads the clean pass's window tables at
+its own pixel.  Nothing reduces floats over the surfel axis, so the result
+is the unsharded one bit for bit.
 """
 
 from __future__ import annotations
@@ -120,7 +128,7 @@ def _check_neighbours(raw_depth):
 
 
 def fuse(
-    store: SurfelStore,
+    store,
     frame: FrameSurfels,
     raw_depth: torch.Tensor,
     imap: IndexMap,
@@ -138,7 +146,8 @@ def fuse(
 
     CONTRACT (as in the reference): `imap` is `predict_indices(store, pose)`
     of THIS store at THIS pose — a surfel claims a pixel's accumulated
-    updates iff the render's index at its own pixel is itself."""
+    updates iff the render's index at its own pixel is itself.  `store` may
+    be sharded; `imap` is then the combined render."""
     H, W = raw_depth.shape
     dev = raw_depth.device
     x = torch.arange(W, device=dev)[None, :]
@@ -207,7 +216,6 @@ def fuse(
     # per-surfel sums are per-pixel sums at the winner's pixel.  Reverse the
     # association window in a fixed tap order, then every surfel fetches its
     # sums at its own projected pixel.
-    n = store.capacity
     merge_full = cand & (best_tap >= 0)
     a_full = torch.where(merge_full, frame.conf, 0.0)
     contrib = torch.stack(
@@ -229,14 +237,79 @@ def fuse(
             acc_img = acc_img + _shifted(torch.where(sel, contrib, 0.0), -dy, -dx, 0.0)
             k += 1
 
-    # per-surfel fetch with the SAME projection as the index render: surfel s
-    # won pixel lin_s iff imap.index[lin_s] == s (compared as integers)
+    # --- new unstable surfels: appended rows are contiguous
+    # [count, count+appended).  A stable argsort puts new pixels first in
+    # pixel order (sorted row i IS rank i); rows are written at count + i
+    # into a P-padded copy, so the offset never runs past the end.
+    n = store.capacity
+    new_i = new_s.to(torch.int64)
+    rank = torch.cumsum(new_i, 0) - 1
+    count = store.count.to(torch.int64)
+    dest = torch.where(new_s, count + rank, n)
+    new_count = torch.clamp(count + new_i.sum(), max=n)
+
+    P = new_s.shape[0]
+    order = torch.argsort(torch.where(new_s, 0, 1).to(torch.int32), stable=True)
+    w_cols = {
+        "px": wpos[..., 0], "py": wpos[..., 1], "pz": wpos[..., 2],
+        "nx": wnorm[..., 0], "ny": wnorm[..., 1], "nz": wnorm[..., 2],
+        "cr": frame.color[..., 0], "cg": frame.color[..., 1], "cb": frame.color[..., 2],
+        "radius": frame.radius, "conf": frame.conf,
+    }
+    rows = {f: sub(v).index_select(0, order) for f, v in w_cols.items()}
+    tf_rows = torch.full((P,), float(time), dtype=torch.float32, device=dev)
+    rows["init_time"] = tf_rows
+    rows["last_time"] = tf_rows
+    at = count + torch.arange(P, device=dev)
+
+    # --- per surfel, shard by shard on the shards' devices: the merge, then
+    # the append rows that fall in the shard's range (the others land past
+    # its end, in the padding)
+    acc_flat = acc_img.reshape(H * W, 11)
+    index_flat = imap.index.reshape(-1)
+    sharded = isinstance(store, sm.ShardedStore)
+    shards, offsets = sm.shards_of(store)
+    out_shards = []
+    for sh, off in zip(shards, offsets):
+        n_k, dk = sh.capacity, sh.px.device
+        updated = _merge(sh, off, sm.to_device(acc_flat, dk), sm.to_device(index_flat, dk),
+                         sm.to_device(pose, dk), cam, time)
+        at_k = sm.to_device(at, dk)
+        if sharded:
+            at_k = torch.where((at_k >= off) & (at_k < off + n_k), at_k - off,
+                               n_k + torch.arange(P, device=dk))
+
+        def put(base, new_rows):
+            pad = torch.zeros((P,), dtype=base.dtype, device=dk)
+            return torch.cat([base, pad]).index_copy(0, at_k, sm.to_device(new_rows, dk))[:n_k]
+
+        out_shards.append(SurfelStore(
+            **{f: put(getattr(updated, f), rows[f]) for f in sm.DATA_FIELDS[:-1]},
+            valid=torch.arange(off, off + n_k, device=dk) < sm.to_device(new_count, dk),
+            count=None,
+        ))
+    if sharded:
+        out = sm.ShardedStore(tuple(out_shards), new_count.to(torch.int32))
+    else:
+        out = out_shards[0]._replace(count=new_count.to(torch.int32))
+    if return_aux:
+        return out, FuseAux(new_s=new_s, dest=dest, count=new_count, phase=p)
+    return out
+
+
+def _merge(store: SurfelStore, off: int, acc_flat, index_flat, pose, cam: CameraConfig, time):
+    """The update pass for the surfels of `store`, global rows [off, off +
+    capacity): each fetches the window-reversed sums at its own projected
+    pixel, with the SAME projection as the index render (surfel s won pixel
+    lin_s iff the render's index there is s, compared as integers), and
+    merges them confidence-weighted (update.vert:38-111)."""
+    H, W = cam.height, cam.width
     _, _, _, _, _, _, uis, vis, _ = _project_store(store, pose, cam)
     lin_s = (torch.clamp(vis, 0, H - 1) * W + torch.clamp(uis, 0, W - 1)).to(torch.int64)
-    won = imap.index.reshape(-1).index_select(0, lin_s) == torch.arange(
-        n, dtype=torch.int32, device=dev
+    won = index_flat.index_select(0, lin_s) == torch.arange(
+        off, off + store.capacity, dtype=torch.int32, device=lin_s.device
     )
-    fetch = acc_img.reshape(H * W, 11).index_select(0, lin_s)
+    fetch = acc_flat.index_select(0, lin_s)
     fetch = torch.where(won[:, None], fetch, 0.0)
     sum_a = fetch[:, 0]
     _keys = ("px", "py", "pz", "radius", "cr", "cg", "cb", "nx", "ny", "nz")
@@ -266,53 +339,20 @@ def fuse(
     rad_u = torch.where(grow_ok, (c_k * store.radius + sums["radius"]) / denom, store.radius)
 
     tf = float(time)
-    updated = store._replace(
+    return store._replace(
         px=px_u, py=py_u, pz=pz_u, nx=nx_u, ny=ny_u, nz=nz_u,
         cr=cr_u, cg=cg_u, cb=cb_u, radius=rad_u,
         conf=torch.where(hit, c_k + sum_a, c_k),
         last_time=torch.where(hit, tf, store.last_time),
     )
 
-    # --- new unstable surfels: appended rows are contiguous
-    # [count, count+appended).  A stable argsort puts new pixels first in
-    # pixel order (sorted row i IS rank i); rows are written at count + i
-    # into a P-padded copy, so the offset never runs past the end.
-    new_i = new_s.to(torch.int64)
-    rank = torch.cumsum(new_i, 0) - 1
-    count = store.count.to(torch.int64)
-    dest = torch.where(new_s, count + rank, n)
-    new_count = torch.clamp(count + new_i.sum(), max=n)
 
-    P = new_s.shape[0]
-    order = torch.argsort(torch.where(new_s, 0, 1).to(torch.int32), stable=True)
-    w_cols = {
-        "px": wpos[..., 0], "py": wpos[..., 1], "pz": wpos[..., 2],
-        "nx": wnorm[..., 0], "ny": wnorm[..., 1], "nz": wnorm[..., 2],
-        "cr": frame.color[..., 0], "cg": frame.color[..., 1], "cb": frame.color[..., 2],
-        "radius": frame.radius, "conf": frame.conf,
-    }
-    rows = {f: sub(v).index_select(0, order) for f, v in w_cols.items()}
-    tf_rows = torch.full((P,), tf, dtype=torch.float32, device=dev)
-    rows["init_time"] = tf_rows
-    rows["last_time"] = tf_rows
-    at = count + torch.arange(P, device=dev)
-
-    def put(base, new_rows):
-        pad = torch.zeros((P,), dtype=base.dtype, device=dev)
-        return torch.cat([base, pad]).index_copy(0, at, new_rows)[:n]
-
-    out = SurfelStore(
-        **{f: put(getattr(updated, f), rows[f]) for f in sm.DATA_FIELDS[:-1]},
-        valid=torch.arange(n, device=dev) < new_count,
-        count=new_count.to(torch.int32),
-    )
-    if return_aux:
-        return out, FuseAux(new_s=new_s, dest=dest, count=new_count, phase=p)
-    return out
+_OVERLAY_FIELDS = ("px", "py", "pz", "nx", "ny", "nz", "conf", "radius", "cr", "cg", "cb",
+                   "init_time", "last_time")
 
 
 def overlay_imap(
-    fused: SurfelStore,
+    fused,
     imap: IndexMap,
     aux: FuseAux,
     frame: FrameSurfels,
@@ -330,9 +370,11 @@ def overlay_imap(
     dev = imap.index.device
 
     i0 = torch.where(imap.valid, imap.index, 0).reshape(-1).to(torch.int64)
+    # every rendered surfel's fused attributes, from the shard that owns it
+    taken = dict(zip(_OVERLAY_FIELDS, sm.take_rows(fused, i0, _OVERLAY_FIELDS)))
 
     def img(field):
-        return getattr(fused, field).index_select(0, i0).reshape(H, W)
+        return taken[field].reshape(H, W)
 
     px, py, pz = img("px"), img("py"), img("pz")
     nx, ny, nz = img("nx"), img("ny"), img("nz")
@@ -385,7 +427,7 @@ def overlay_imap(
 
 
 def clean_eval(
-    store: SurfelStore,
+    store,
     imap: IndexMap,
     depth_input: torch.Tensor,
     pose: torch.Tensor,
@@ -396,28 +438,15 @@ def clean_eval(
     outlier_coeff,
     mask: torch.Tensor | None = None,
     mask_id=None,
-) -> tuple[SurfelStore, torch.Tensor]:
+):
     """Clean/copy pass predicates (copy_unstable.vert:53-150): duplicate
     suppression, unstable-timeout removal, free-space-violation confidence
     decay and, given the frame's model-id `mask`, the mask-mismatch penalty
     of model `mask_id`.  Returns (store with decayed confidences, keep
-    mask).  `imap` is the post-fuse index render."""
+    mask).  `imap` is the post-fuse index render.  The 3x3 window's image
+    tables are built once; a sharded store's shards read them on their own
+    devices and return a tuple of per-shard keep masks."""
     H, W = cam.height, cam.width
-    n = store.capacity
-    dev = depth_input.device
-    t_inv = invert_rt(pose)
-    lx, ly, zl = rotate_planar(t_inv[:3, :3], store.px, store.py, store.pz, t_inv[:3, 3])
-    _, _, lnz = rotate_planar(t_inv[:3, :3], store.nx, store.ny, store.nz)
-    zs = torch.where(zl == 0, 1.0, zl)
-    xpix = lx * cam.fx / zs + cam.cx
-    ypix = ly * cam.fy / zs + cam.cy
-    xi = torch.floor(xpix).to(torch.int32)
-    yi = torch.floor(ypix).to(torch.int32)
-    inb = (xpix > 0) & (ypix > 0) & (xpix < W) & (ypix < H) & (zl > 0)
-    in_window = (time - store.last_time) < time_delta
-    search_ok = store.valid & in_window & inb
-    lin = (torch.clamp(yi, 0, H - 1) * W + torch.clamp(xi, 0, W - 1)).to(torch.int64)
-
     # Window taps: shifted image tables gathered at the surfel's own pixel.
     # The reference's dup window is +/-1 px at half-pixel steps
     # (copy_unstable.vert:76-78,87-88) — 9 distinct texels.
@@ -432,6 +461,47 @@ def clean_eval(
         (z_dup_img, neg_inf), (z_zdup_img, neg_inf), (it_img, pos_inf),
         (imap.vert_conf[..., 0], 0.0), (imap.vert_conf[..., 1], 0.0), (depth_input, 0.0),
     )
+    tables = (
+        torch.stack([_shifted(c, dy, dx, fill) for c, fill in chans], dim=-1).reshape(H * W, 6)
+        for dy in range(-1, 2) for dx in range(-1, 2)
+    )
+    if not isinstance(store, sm.ShardedStore):
+        # one table at a time
+        return _clean_surfels(store, tables, pose, cam, time, time_delta, conf_threshold,
+                              outlier_coeff, mask, mask_id)
+    tables = list(tables)
+    outs, keeps = [], []
+    for sh in store.shards:
+        dk = sh.px.device
+        out, keep = _clean_surfels(
+            sh, [sm.to_device(t, dk) for t in tables], sm.to_device(pose, dk), cam, time,
+            time_delta, sm.to_device(conf_threshold, dk), outlier_coeff,
+            sm.to_device(mask, dk), sm.to_device(mask_id, dk),
+        )
+        outs.append(out)
+        keeps.append(keep)
+    return sm.ShardedStore(tuple(outs), store.count), tuple(keeps)
+
+
+def _clean_surfels(store: SurfelStore, tables, pose, cam: CameraConfig, time, time_delta,
+                   conf_threshold, outlier_coeff, mask, mask_id):
+    """`clean_eval` for the surfels of `store`: each reads the 9 window
+    tables (H*W, 6, in tap order) at its own projected pixel."""
+    H, W = cam.height, cam.width
+    n = store.capacity
+    dev = store.px.device
+    t_inv = invert_rt(pose)
+    lx, ly, zl = rotate_planar(t_inv[:3, :3], store.px, store.py, store.pz, t_inv[:3, 3])
+    _, _, lnz = rotate_planar(t_inv[:3, :3], store.nx, store.ny, store.nz)
+    zs = torch.where(zl == 0, 1.0, zl)
+    xpix = lx * cam.fx / zs + cam.cx
+    ypix = ly * cam.fy / zs + cam.cy
+    xi = torch.floor(xpix).to(torch.int32)
+    yi = torch.floor(ypix).to(torch.int32)
+    inb = (xpix > 0) & (ypix > 0) & (xpix < W) & (ypix < H) & (zl > 0)
+    in_window = (time - store.last_time) < time_delta
+    search_ok = store.valid & in_window & inb
+    lin = (torch.clamp(yi, 0, H - 1) * W + torch.clamp(xi, 0, W - 1)).to(torch.int64)
 
     count = torch.zeros((n,), dtype=torch.int32, device=dev)
     z_count = torch.zeros((n,), dtype=torch.int32, device=dev)
@@ -440,10 +510,10 @@ def clean_eval(
 
     steep = torch.abs(lnz) > 0.85
     rad_gate = store.radius * 1.4
+    taps = iter(tables)
     for dy in range(-1, 2):
         for dx in range(-1, 2):
-            table = torch.stack([_shifted(c, dy, dx, fill) for c, fill in chans], dim=-1)
-            zd, zz, it, qx, qy, d = table.reshape(H * W, 6).index_select(0, lin).unbind(-1)
+            zd, zz, it, qx, qy, d = next(taps).index_select(0, lin).unbind(-1)
             oob = (xi + dx < 0) | (xi + dx >= W) | (yi + dy < 0) | (yi + dy >= H)
             ok_tap = ~oob & search_ok
             # duplicate: older, confident, behind, close, within radius

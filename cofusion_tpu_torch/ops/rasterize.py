@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from cofusion_tpu_torch.config import CameraConfig, CoFusionConfig
+from cofusion_tpu_torch.models import surfel_model as sm
 from cofusion_tpu_torch.models.surfel_model import SurfelStore
 from cofusion_tpu_torch.ops import cuda_splat
 from cofusion_tpu_torch.ops.lie import invert_rt
@@ -112,50 +113,66 @@ def _zkey_bits(capacity: int) -> int:
     return 31 - idx_bits
 
 
-def _zbuffer(lin, ok, z, idx, n_buckets: int, capacity: int, max_depth):
-    """Winner surfel index per bucket (`capacity` = no winner).  `lin` holds
-    the (batch-folded) bucket of each entry, `n_buckets` where ~ok; `idx` the
-    surfel index of each entry.  Every scatter goes through a dump bucket
-    `n_buckets` that is sliced off (JAX's mode="drop")."""
-    lin = lin.reshape(-1).to(torch.int64)
-    ok = ok.reshape(-1)
-    z = z.reshape(-1)
-    idx = idx.reshape(-1)
+def _bucket_min(lin, vals, n_buckets: int, init):
+    """Per-bucket minimum of `vals` (`init` where none), through a dump
+    bucket `n_buckets` that is sliced off (JAX's mode="drop")."""
+    buf = torch.full((n_buckets + 1,), init, dtype=vals.dtype, device=vals.device)
+    return buf.scatter_reduce(0, lin, vals, reduce="amin", include_self=True)[:n_buckets]
+
+
+def _min_over(bufs):
+    """Elementwise minimum of per-shard buffers, on the first one's device."""
+    out = bufs[0]
+    for b in bufs[1:]:
+        out = torch.minimum(out, sm.to_device(b, out.device))
+    return out
+
+
+def _zbuffer(parts, n_buckets: int, capacity: int, max_depth):
+    """Winner surfel index per bucket (`capacity` = no winner).  `parts`
+    holds one (lin, ok, z, idx) per shard of the store: `lin` the
+    (batch-folded) bucket of each entry, `n_buckets` where ~ok; `idx` its
+    global surfel index.  The keys quantise with the bits of the whole
+    store's `capacity`, so shards combine by an elementwise minimum of their
+    buffers (min is order-free: the sharded winner is the unsharded one);
+    the result is on the first part's device."""
+    parts = [(lin.reshape(-1).to(torch.int64), ok.reshape(-1), z.reshape(-1), idx.reshape(-1))
+             for lin, ok, z, idx in parts]
     idx_bits = max(1, (capacity - 1).bit_length())
     zbits = _zkey_bits(capacity)
-    dev = z.device
     if zbits < 12:
         # exact two-pass form: float z scatter-min, then the smallest index
         # among entries at the winning depth
-        zm = torch.where(ok, z, float("inf"))
-        zbuf = torch.full((n_buckets + 1,), float("inf"), device=dev)
-        zbuf = zbuf.scatter_reduce(0, lin, zm, reduce="amin", include_self=True)
-        zwin = zbuf.index_select(0, torch.clamp(lin, 0, n_buckets - 1))
-        win = ok & (z <= zwin)
-        cand = torch.where(win, idx, capacity).to(torch.int32)
-        ibuf = torch.full((n_buckets + 1,), capacity, dtype=torch.int32, device=dev)
-        ibuf = ibuf.scatter_reduce(0, lin, cand, reduce="amin", include_self=True)
-        return ibuf[:n_buckets]
+        zbuf = _min_over([_bucket_min(lin, torch.where(ok, z, float("inf")), n_buckets, float("inf"))
+                          for lin, ok, z, _ in parts])
+        cands = []
+        for lin, ok, z, idx in parts:
+            zwin = sm.to_device(zbuf, z.device).index_select(0, torch.clamp(lin, 0, n_buckets - 1))
+            cand = torch.where(ok & (z <= zwin), idx, capacity).to(torch.int32)
+            cands.append(_bucket_min(lin, cand, n_buckets, capacity))
+        return _min_over(cands)
     zscale = float((1 << zbits) - 1)
-    if isinstance(max_depth, torch.Tensor):
-        zdiv = torch.clamp(max_depth, min=1e-6)
-    else:
-        zdiv = torch.full((), max(float(max_depth), 1e-6), device=dev)
-    zq = torch.clamp((z / zdiv) * zscale, 0.0, zscale).to(torch.int32)
-    key = (zq << idx_bits) | idx.to(torch.int32)
     init = 2147483647
-    key = torch.where(ok, key, init)
-    kbuf = torch.full((n_buckets + 1,), init, dtype=torch.int32, device=dev)
-    kbuf = kbuf.scatter_reduce(0, lin, key, reduce="amin", include_self=True)[:n_buckets]
+    keys = []
+    for lin, ok, z, idx in parts:
+        md = sm.to_device(max_depth, z.device)
+        if isinstance(md, torch.Tensor):
+            zdiv = torch.clamp(md, min=1e-6)
+        else:
+            zdiv = torch.full((), max(float(md), 1e-6), device=z.device)
+        zq = torch.clamp((z / zdiv) * zscale, 0.0, zscale).to(torch.int32)
+        key = torch.where(ok, (zq << idx_bits) | idx.to(torch.int32), init)
+        keys.append(_bucket_min(lin, key, n_buckets, init))
+    kbuf = _min_over(keys)
     return torch.where(kbuf != init, kbuf & ((1 << idx_bits) - 1), capacity)
 
 
-def _gather_imap(cols, flat_idx, index, has, out_shape) -> IndexMap:
-    """Fetch the rendered surfel's 13 attribute channels at `flat_idx` (into
-    the flattened, batch-folded store leaves) and assemble the IndexMap
-    (zeros where nothing rendered).  `index` is the per-model surfel index."""
+def _assemble_imap(gathered, index, has, out_shape) -> IndexMap:
+    """The IndexMap from the rendered surfel's 13 gathered attribute
+    channels (zeros where nothing rendered).  `index` is the per-model
+    surfel index."""
     (glx, gly, glz, gconf, gnx, gny, gnz, grad, gcr, gcg, gcb, git, glt) = (
-        c.reshape(-1).index_select(0, flat_idx).reshape(out_shape) for c in cols
+        c.reshape(out_shape) for c in gathered
     )
     hasx = has.reshape(out_shape)
     hx = hasx[..., None]
@@ -173,7 +190,7 @@ def _gather_imap(cols, flat_idx, index, has, out_shape) -> IndexMap:
 
 
 def predict_indices(
-    store: SurfelStore,
+    store,
     pose: torch.Tensor,
     cam: CameraConfig,
     time,
@@ -185,22 +202,32 @@ def predict_indices(
     """Z-buffered 1x point render of the surfel map into the camera at `pose`.
     Gates: 0 < z <= max_depth and time - last_time <= time_delta
     (index_map.vert:45-50; > time_delta with `active_window` off);
-    `conf_threshold` adds splat.vert:58's gate."""
+    `conf_threshold` adds splat.vert:58's gate.
+
+    A sharded store renders shard by shard on the shards' devices, each
+    keying its surfels by global row; the key buffers combine by minimum
+    and each attribute comes from the shard that owns the winner, so the
+    map (on the count's device) is the unsharded one bit for bit."""
     H, W = cam.height, cam.width
     n = store.capacity
-    lx, ly, lz, lnx, lny, lnz, ui, vi, inb = _project_store(store, pose, cam)
-    ok = store.valid & (lz > 0) & (lz <= max_depth) & inb
-    ok = ok & _window_gate(store, time, time_delta, active_window)
-    if conf_threshold is not None:
-        ok = ok & (store.conf >= conf_threshold)
-    lin = torch.where(ok, vi * W + ui, H * W)
-    idx = torch.arange(n, dtype=torch.int32, device=lz.device)
-    ibuf = _zbuffer(lin, ok, lz, idx, H * W, n, max_depth)
+    shards, offsets = sm.shards_of(store)
+    parts, cols = [], []
+    for sh, off in zip(shards, offsets):
+        dk = sh.px.device
+        lx, ly, lz, lnx, lny, lnz, ui, vi, inb = _project_store(sh, sm.to_device(pose, dk), cam)
+        ok = sh.valid & (lz > 0) & (lz <= sm.to_device(max_depth, dk)) & inb
+        ok = ok & _window_gate(sh, time, time_delta, active_window)
+        if conf_threshold is not None:
+            ok = ok & (sh.conf >= sm.to_device(conf_threshold, dk))
+        lin = torch.where(ok, vi * W + ui, H * W)
+        idx = torch.arange(off, off + sh.capacity, dtype=torch.int32, device=dk)
+        parts.append((lin, ok, lz, idx))
+        cols.append((lx, ly, lz, sh.conf, lnx, lny, lnz, sh.radius,
+                     sh.cr, sh.cg, sh.cb, sh.init_time, sh.last_time))
+    ibuf = _zbuffer(parts, H * W, n, max_depth)
     has = ibuf < n
     i0 = torch.where(has, ibuf, 0).to(torch.int64)
-    cols = (lx, ly, lz, store.conf, lnx, lny, lnz, store.radius,
-            store.cr, store.cg, store.cb, store.init_time, store.last_time)
-    return _gather_imap(cols, i0, i0, has, (H, W))
+    return _assemble_imap(sm.gather_rows(cols, offsets, i0), i0, has, (H, W))
 
 
 def predict_indices_b(
@@ -215,7 +242,9 @@ def predict_indices_b(
 ) -> IndexMap:
     """Batched `predict_indices` over the model axis (store leaves (M, N),
     poses (M, 4, 4), max_depth/conf_threshold (M,)): the model index folds
-    into one flat bucket index, so the z-buffer stays one scatter-min."""
+    into one flat bucket index, so the z-buffer stays one scatter-min.
+    A plain store only: its one caller renders the first frame's map, and
+    a state is sharded after its first frame."""
     M, N = store.px.shape
     H, W = cam.height, cam.width
     lx, ly, lz, lnx, lny, lnz, ui, vi, inb = _project_store(store, poses, cam)
@@ -227,13 +256,13 @@ def predict_indices_b(
     lin = torch.where(ok, m_iota * (H * W) + vi * W + ui, M * H * W)
     idx = torch.arange(N, dtype=torch.int32, device=lz.device).expand(M, N)
     # per-model max_depth in the quantizer: the max keeps keys comparable
-    ibuf = _zbuffer(lin, ok, lz, idx, M * H * W, N, torch.max(max_depth)).reshape(M, H * W)
+    ibuf = _zbuffer([(lin, ok, lz, idx)], M * H * W, N, torch.max(max_depth)).reshape(M, H * W)
     has = ibuf < N
     i0 = torch.where(has, ibuf, 0).to(torch.int64)
     gi = (torch.arange(M, device=lz.device)[:, None] * N + i0).reshape(-1)
     cols = (lx, ly, lz, store.conf, lnx, lny, lnz, store.radius,
             store.cr, store.cg, store.cb, store.init_time, store.last_time)
-    return _gather_imap(cols, gi, i0, has, (M, H, W))
+    return _assemble_imap([c.reshape(-1).index_select(0, gi) for c in cols], i0, has, (M, H, W))
 
 
 def splat_from_imap(

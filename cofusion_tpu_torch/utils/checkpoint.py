@@ -27,6 +27,7 @@ from cofusion_tpu_torch.models import surfel_model as sm
 from cofusion_tpu_torch.models.surfel_model import SurfelStore
 from cofusion_tpu_torch.ops.ferns import FernDB
 from cofusion_tpu_torch.ops.rasterize import SplatMap
+from cofusion_tpu_torch.parallel.mesh import unshard_engine_state
 
 VERSION = 1
 
@@ -111,8 +112,11 @@ def _host(engine) -> dict:
 
 
 def save_engine(engine, path: str) -> None:
+    """Save the engine; a sharded state is gathered whole first (resume
+    loads it whole, and `parallel.shard_engine_state` shards it again)."""
     torch.save(
-        {"state": flatten_state(engine.state), "timestamps": list(engine._timestamps),
+        {"state": flatten_state(unshard_engine_state(engine.state)),
+         "timestamps": list(engine._timestamps),
          "host": _host(engine), "version": VERSION},
         path,
     )

@@ -1,6 +1,7 @@
 """The port stands without JAX: no module of cofusion_tpu_torch imports it,
 the package, its engine, its CLI, its readers and PNG codec, its
-ground-truth poses, its checkpoints, its dataset tools and chip_smoke.py
+ground-truth poses, its checkpoints, its dataset tools, its device-mesh
+sharding and chip_smoke.py
 import in a process where `import jax` fails and import nothing of the JAX
 package either, nor OpenCV or matplotlib (PNG datasets are read, and runs
 scored, without them), and on CPU tensors the kernel dispatchers never
@@ -45,7 +46,7 @@ def test_no_source_file_imports_jax():
      "cofusion_tpu_torch.ops.deformation", "cofusion_tpu_torch.ops.local_loop",
      "cofusion_tpu_torch.io.ground_truth", "cofusion_tpu_torch.utils.checkpoint",
      "cofusion_tpu_torch.io.png", "cofusion_tpu_torch.tools", "cofusion_tpu_torch.tools.evaluate",
-     "cofusion_tpu_torch.tools.view", "chip_smoke"],
+     "cofusion_tpu_torch.tools.view", "cofusion_tpu_torch.parallel", "chip_smoke"],
 )
 def test_imports_with_jax_blocked(module):
     banned = ("jax", "cofusion_tpu", "cv2", "matplotlib")
