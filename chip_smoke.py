@@ -13,8 +13,9 @@ CRF motion segmentation of 3 moving boxes, bench.py:60-99,124-127), and
 deformation graph at 256 nodes) at 640x480; then the remaining surfaces:
 '-p' ground-truth poses, `render_views` (the '-en'/'-ev' exports),
 checkpoints and hot tuning; the CLI itself over files on disk, scored by
-the port's own tools; and last the static and bench paths on an engine
-state sharded over a 4-device mesh.
+the port's own tools; and last the static, bench and `-rl -cl` paths, the
+drift and blackout scenarios and `render_views` on an engine state
+sharded over a 4-device mesh.
 Phases (each prints one line of findings and raises on failure; nothing is
 caught, nothing falls back to the CPU):
 
@@ -130,17 +131,23 @@ caught, nothing falls back to the CPU):
                   over a raw-RGB .klg of phase 4's frames (ATE < 1 cm)
  19. sharded      the engine state sharded over a 4-device mesh
                   (`cofusion_tpu_torch.parallel`: both tiers' surfel axes,
-                  virtual on one card): phase 4's 30 frames and the bench
+                  virtual on one card), each run against the unsharded run
+                  of the same call: phase 4's first 16 frames and the bench
                   workload's first 26 (its first spawn, then 6 more), each
-                  run's last frame at time delta 0, against the unsharded
-                  runs of the same call: poses, both tiers, counts, flags,
-                  events and masks bit-identical; bilateral and splat once a
-                  frame; the splat bit-equal to its plain version on the
-                  sharded step's own combined index maps; kernel launches
-                  and device busy ms of 1 more frame, steady ms per frame
-                  and each run's own peak memory (frame 1 with the
-                  sharding's copy, and the frames after), sharded and
-                  unsharded
+                  run's last frame at time delta 0; phase 10's `-static -rl
+                  -cl` 20 frames; phase 11's drift at time delta 3 (the
+                  stable tier fills, a closure fires with stable surfels);
+                  phase 12's blackout (lost, recovered); `render_views` on
+                  phase 15's '-t 5' map.  Poses, both tiers, counts, flags,
+                  the fern database, the rings, events, masks and views
+                  bit-identical; the kernels' launches as unsharded; the
+                  splat bit-equal to its plain version on the sharded
+                  step's own combined index maps, the sharded loop block's
+                  and `render_views`'; kernel launches and device busy ms of
+                  1 more frame, steady ms per frame and each run's own peak
+                  memory (frame 1 with the sharding's copy, and the frames
+                  after), and the loop block's device ms and peak memory,
+                  sharded and unsharded
 
 Each phase line ends with `at_s`, the seconds since the start.  The last
 stdout line is {"ok": true, "device": {...}}; before it, a
@@ -148,7 +155,8 @@ stdout line is {"ok": true, "device": {...}}; before it, a
 `launches_multi` and `launches_static` from phases 7 and 4,
 `launches_gt_pose` from phase 14's static run, `launches_render` from one
 `render_views` call, `launches_cli` from phase 18's CRF run,
-`launches_sharded` from phase 19's sharded bench run) and the
+`launches_sharded`, `launches_sharded_loop` and `launches_sharded_render`
+from phase 19's sharded bench run, `-rl -cl` run and `render_views` call) and the
 nvidia-smi name/power-limit line.  Exits non-zero without a result when CUDA is
 unavailable or any phase fails.  Imports only the port (cofusion_tpu_torch),
 which imports nothing of JAX.
@@ -1125,13 +1133,13 @@ LOOP_FUSION = dict(depth_cutoff=4.5, confidence_global=1.0, local_loop_cov_thres
 DRIFT = (0.03, 0.015, 0.0)
 
 
-def _loop_engine(dev, reloc=True, close=True, **fusion):
+def _loop_engine(dev, reloc=True, close=True, time_delta=200, **fusion):
     """`-static -rl -cl` at full width: CoFusionConfig(max_models=1) (2^20
     surfels, active 2^19, deform_nodes 256, cons_sample 20)."""
     from cofusion_tpu_torch.config import CameraConfig, CoFusionConfig, FusionParams
     from cofusion_tpu_torch.engine import CoFusion
 
-    cfg = CoFusionConfig(camera=CameraConfig(), max_models=1)
+    cfg = CoFusionConfig(camera=CameraConfig(), max_models=1, time_delta=time_delta)
     return CoFusion(cfg, fusion_params=FusionParams(**dict(dict(depth_cutoff=4.5), **fusion)),
                     enable_relocalization=reloc, close_loops=close, device=dev)
 
@@ -1254,25 +1262,27 @@ def phase_loop_blocks(eng):
            method="torch.profiler over 2 calls on copies of the final state")
 
 
-def _age_and_drift(eng):
-    """Age the whole active tier out of the time window and add DRIFT to the
-    camera (tests/test_local_loop.py's drift scenario)."""
+def _age_and_drift(eng, stamp=-500.0):
+    """Age the whole active tier out of the time window (its surfels
+    stamped `stamp`, in place, shard by shard where sharded) and add DRIFT
+    to the camera (tests/test_local_loop.py's drift scenario)."""
     import torch
 
+    from cofusion_tpu_torch.models import surfel_model as sm
+
     st = eng.state
-    store = st.models.store
+    for s in sm.shards_of(st.models.store)[0]:
+        s.last_time[0].copy_(torch.where(s.valid[0], stamp, s.last_time[0]))
     pose = st.models.pose.clone()
     pose[0, :3, 3] += torch.tensor(DRIFT, dtype=pose.dtype).to(pose.device, non_blocking=True)
-    aged = torch.where(store.valid, -500.0, store.last_time)
-    eng.state = st._replace(models=st.models._replace(store=store._replace(last_time=aged),
-                                                      pose=pose))
+    eng.state = st._replace(models=st.models._replace(pose=pose))
 
 
 def _splat_on_views(eng, tiers):
     """The splat kernel against its plain version, bit for bit, on index
-    maps of the current state: `tiers` is a list of (name, store, time
-    delta, active window), each rendered at slot 0's pose and splatted as
-    splat_from_imap splats it."""
+    maps of the current state (sharded or not): `tiers` is a list of
+    (name, store, time delta, active window), each rendered at slot 0's
+    pose and splatted as splat_from_imap splats it."""
     import torch
 
     import cofusion_tpu_torch.engine as em
@@ -1283,7 +1293,7 @@ def _splat_on_views(eng, tiers):
     pose0, conf0 = st.models.pose[0], st.models.conf_threshold[0]
     rows = []
     for tier, store, td, active in tiers:
-        imap = rz.predict_indices(em._unbatch(store), pose0, cam, st.tick, td,
+        imap = rz.predict_indices(em._slot0(store), pose0, cam, st.tick, td,
                                   fp["depth_cutoff"], conf_threshold=conf0, active_window=active)
         args = (imap.vert_conf[None, ..., :3], imap.normal_rad[None, ..., :3],
                 imap.normal_rad[None, ..., 3], imap.valid[None], cfg.splat_radius,
@@ -1350,6 +1360,28 @@ def phase_loop_closure(dev, frames, gt):
         raise RuntimeError(f"drift scenario: closures at {closed_at}, errors {errs}")
 
 
+def _blackout_frames(cam):
+    """tests/test_reloc.py's blackout: 6 frames of the scene, 14 of a
+    blacked-out sensor, 3 of the scene seen from 7 cm away (T_re)."""
+    import numpy as np
+
+    from cofusion_tpu_torch.io.synthetic import SyntheticScene
+
+    scene = SyntheticScene()
+    rgb0, d0, _ = scene.render(cam, np.eye(4))
+    rgb_re, d_re, _ = scene.render(cam, _t_re())
+    seq = [(rgb0, d0)] * 6 + [(np.full_like(rgb0, 10), np.zeros_like(d0))] * 14 + [(rgb_re, d_re)] * 3
+    return [{"rgb": r, "depth": d, "mask": None, "timestamp": i} for i, (r, d) in enumerate(seq)]
+
+
+def _t_re():
+    import numpy as np
+
+    T_re = np.eye(4)
+    T_re[:3, 3] = (0.06, -0.03, 0.02)
+    return T_re
+
+
 def phase_reloc(dev):
     """tests/test_reloc.py's blackout scenario at 640x480: 6 frames of the
     scene, 14 of a blacked-out sensor, 3 of the scene seen from 7 cm away
@@ -1358,19 +1390,13 @@ def phase_reloc(dev):
     import numpy as np
 
     from cofusion_tpu_torch.config import CameraConfig
-    from cofusion_tpu_torch.io.synthetic import SyntheticScene
 
-    cam = CameraConfig()
     eng = _loop_engine(dev, close=False, fern_min_age=3, confidence_global=1.0)
-    scene = SyntheticScene()
-    T_re = np.eye(4)
-    T_re[:3, 3] = (0.06, -0.03, 0.02)
-    rgb0, d0, _ = scene.render(cam, np.eye(4))
-    rgb_re, d_re, _ = scene.render(cam, T_re)
-    seq = [(rgb0, d0)] * 6 + [(np.full_like(rgb0, 10), np.zeros_like(d0))] * 14 + [(rgb_re, d_re)] * 3
+    T_re = _t_re()
+    seq = _blackout_frames(CameraConfig())
     lost = []
-    for i, (rgb, d) in enumerate(seq):
-        eng.process_frame({"rgb": rgb, "depth": d, "mask": None, "timestamp": i})
+    for f in seq:
+        eng.process_frame(f)
         lost.append(bool(eng.state.lost))
     err = float(np.linalg.norm(eng.camera_pose()[:3, 3] - T_re[:3, 3]))
     keyframes = int(eng.state.fern_db.count)
@@ -1385,20 +1411,11 @@ def phase_loop_parity():
     """CPU against card by replayed steps (as phases 6 and 9): the drift run
     at 80x64 and the blackout run at 160x128; lost, loop-closed and the
     keyframe count on every frame and the final keyframe codes exact."""
-    import numpy as np
-
     from cofusion_tpu_torch.config import CameraConfig
-    from cofusion_tpu_torch.io.synthetic import SyntheticScene, make_sequence
+    from cofusion_tpu_torch.io.synthetic import make_sequence
 
     drift_frames, _, _ = make_sequence(CameraConfig(**LOOP_CAM), 10, kind="still")
-    cam = CameraConfig(**SMALL_CAM)
-    scene = SyntheticScene()
-    T_re = np.eye(4)
-    T_re[:3, 3] = (0.06, -0.03, 0.02)
-    rgb0, d0, _ = scene.render(cam, np.eye(4))
-    rgb_re, d_re, _ = scene.render(cam, T_re)
-    seq = [(rgb0, d0)] * 6 + [(np.full_like(rgb0, 10), np.zeros_like(d0))] * 14 + [(rgb_re, d_re)] * 3
-    reloc_frames = [{"rgb": r, "depth": d, "mask": None, "timestamp": i} for i, (r, d) in enumerate(seq)]
+    reloc_frames = _blackout_frames(CameraConfig(**SMALL_CAM))
     for name, frames, kind in (("loop_drift", drift_frames, "loop"), ("reloc_blackout", reloc_frames, "reloc")):
         line, card, _ = _parity(name, frames, kind)
         line["closed_at"] = [i for i, rec in enumerate(card) if rec[3][1]]
@@ -1515,7 +1532,7 @@ def phase_render_views(dev, frames, static_eng):
     own index map (the active tier within the window, the stable tier with
     none), the valid pixels of each, the launches of one call and its
     device ms (torch.profiler over 2 calls).  Returns the launch counts of
-    one call."""
+    one call and the '-t 5' engine."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1568,7 +1585,7 @@ def phase_render_views(dev, frames, static_eng):
             raise RuntimeError(f"render_views on {name}: launches {launches}, finite {finite}")
     if not stable_pixels:
         raise RuntimeError("the stable tier's view is empty in both states")
-    return launches
+    return launches, t5
 
 
 def phase_checkpoint(dev, frames):
@@ -1883,8 +1900,11 @@ def phase_cli(cam, unique, static_frames, static_gt, device="cuda", n=CLI_FRAMES
 # --- the sharded step (cofusion_tpu_torch/parallel): both tiers' surfel
 # axes over a 4-device mesh, bit for bit the unsharded step
 SHARDS = 4
+SHARD_STATIC_FRAMES = 16  # phase 4's first 16 frames: depth cut to make room for the loop cells
 SHARD_MULTI_FRAMES = 26  # the bench workload through its first spawn (frame 19) and 6 more
 SHARD_MULTI_WINDOW = 20  # frames 21-26: object slots track and fuse
+SHARD_DRIFT_TD = 3  # the drift cell's time window: its stable tier fills
+AGED_STAMP = 1.0  # the drift cell's old stamp (> 0: the map ages out into the stable tier)
 
 
 def _device_profile(eng, frame):
@@ -1925,25 +1945,32 @@ def _reset_peaks():
         torch.cuda.reset_peak_memory_stats(d)
 
 
-def _sharded_run(make_engine, frames, start, mesh=None):
+def _sharded_run(make_engine, frames, start, mesh=None, hooks=None, zero_last=True,
+                 record_maps=False, probe=None):
     """Frames through process_frame (sharded after the first where `mesh`
-    is given), the last at time delta 0 (its surfels age out into the
-    stable tier); frames start+1..N under the sync check, timed as one
-    window.  Returns the engine, its kernel launches, events, window ms per
-    frame, its own peak memory (over the first frame with the sharding's
-    copy of the state, and over the frames after) and the combined index
-    maps the step before the last one splatted."""
+    is given); with `zero_last` the last at time delta 0 (its surfels age
+    out into the stable tier); `hooks` maps a frame index to a function of
+    the engine run before that frame; frames start+1..N under the sync
+    check (a hook runs outside it), timed as one window.  Returns the
+    engine, its kernel launches, events, window ms per frame, its own peak
+    memory (over the first frame with the sharding's copy of the state,
+    and over the frames after), per frame `probe(eng)` (device values read
+    after the run; default `lost` and `loop_closed`) and, with
+    `record_maps`, the combined index maps the step before the last one
+    splatted."""
     import torch
 
     from cofusion_tpu_torch.ops import rasterize as rz
     from cofusion_tpu_torch.parallel import shard_engine_state
 
+    hooks = hooks or {}
+    probe = probe or (lambda e: (e.state.lost, e._last_outputs.loop_closed))
     eng = make_engine()
     events = _listen(eng)
     _sync_all()
     base = _allocated()
     _reset_peaks()
-    last = {}
+    last, probes = {}, []
     splat = rz.splat_from_imap
 
     def recorded(imap, cam, cfg, conf_threshold=None):
@@ -1954,14 +1981,19 @@ def _sharded_run(make_engine, frames, start, mesh=None):
         return splat(imap, cam, cfg, conf_threshold=conf_threshold)
 
     _zero_counts()
-    rz.splat_from_imap = recorded
+    if record_maps:
+        rz.splat_from_imap = recorded
     try:
         for i, f in enumerate(frames):
+            if i in hooks:
+                torch.cuda.set_sync_debug_mode("default")
+                hooks[i](eng)
             if i == start:
                 _sync_all()
                 t0 = time.perf_counter()
+            if i >= start:
                 torch.cuda.set_sync_debug_mode("error")
-            if i == len(frames) - 1:
+            if zero_last and i == len(frames) - 1:
                 eng._fparams["time_delta"] = 0
             eng.process_frame(f)
             if i == 0:
@@ -1970,6 +2002,8 @@ def _sharded_run(make_engine, frames, start, mesh=None):
                 _sync_all()
                 peak_first = _allocated(peak=True) - base
                 _reset_peaks()
+            else:
+                probes.append(probe(eng))
         torch.cuda.set_sync_debug_mode("default")
     finally:
         torch.cuda.set_sync_debug_mode("default")
@@ -1980,8 +2014,9 @@ def _sharded_run(make_engine, frames, start, mesh=None):
     peak = (peak_first, _allocated(peak=True) - base)
     eng._fparams["time_delta"] = eng.cfg.time_delta
     eng.flush_lifecycle()
+    probes = [tuple(v.item() for v in p) for p in probes]
     return dict(engine=eng, launches=launches, events=events, window_ms=window_ms, peak=peak,
-                maps=last["before"])
+                maps=last.get("before"), probes=probes)
 
 
 def _whole_state(eng):
@@ -2037,73 +2072,282 @@ def _splat_on_maps(maps, cfg, cam):
     return row
 
 
-def phase_sharded(dev, static_frames, crf_frames):
-    """The static cell's 30 frames and the bench workload's first 26 frames
-    (its first spawn at frame 19, then 6 more; each run's last frame at
-    time delta 0) on a 4-shard mesh, against the unsharded runs in the same
-    call: every pose, both tiers of every slot, counts, flags, lifecycle
-    events and (CRF) masks bit-identical; the bilateral and splat kernels
-    once a frame; the splat bit-equal to its plain version on the sharded
-    step's own combined maps; kernel launches, device busy ms, steady ms
-    per frame and the run's own peak memory, sharded and unsharded.
-    Returns the sharded bench run's kernel launches."""
+def _loop_block_cost(eng) -> dict:
+    """The loop block ('-cl': three window splats, the local loop, graph
+    sampling over both tiers, the graph solve, both tiers warped and
+    re-stamped, the tier exchange; with '-rl', its fern candidate) called
+    on the engine's final state, sharded or not: device busy ms and kernels
+    per call (torch.profiler's device records over 2 calls, summed over the
+    cards) and its own peak memory over the cards and on the first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import cofusion_tpu_torch.engine as em
+
+    st, cfg, cam = eng.state, eng.cfg, eng.cam
+    fp = dict(eng._fparams, weight_multiplier=1.0)
+    pose0, conf0, tick = st.models.pose[0], st.models.conf_threshold[0], st.tick + 1
+    fern = None
+    if eng.enable_relocalization:
+        A0 = torch.eye(6, device=pose0.device) * 1e6
+        fern = em._relocalise(st._replace(fern_db=_tree_to(st.fern_db, pose0.device)), A0,
+                              pose0, st.prev_rgb, st.prev_filtered, cam, cfg, eng.tracking, fp,
+                              tick)[4]
+    store0, stable0 = em._slot0(st.models.store), em._slot0(st.models.stable)
+
+    def close():
+        s = st._replace(pose_history=st.pose_history.clone())
+        return em._close_loop(s, store0, stable0, pose0, conf0, st.lost, fern, cam, cfg,
+                              eng.tracking, fp, tick)
+
+    close()
+    _sync_all()
+    base, base0 = _allocated(), torch.cuda.memory_allocated(pose0.device)
+    _reset_peaks()
+    out = close()
+    _sync_all()
+    peak = _allocated(peak=True) - base
+    peak0 = torch.cuda.max_memory_allocated(pose0.device) - base0
+    del out
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            close()
+        _sync_all()
+    cuda = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = sum(e.count for e in cuda if not e.key.startswith(("Memcpy", "Memset"))) / 2
+    busy = sum(e.self_device_time_total for e in cuda) / 1e3 / 2
+    return dict(loop_block_device_ms=busy, loop_block_kernels=kernels,
+                loop_block_peak_bytes=peak, loop_block_peak_bytes_first_card=peak0)
+
+
+def _stable_valid(eng):
+    """Slot 0's valid stable surfels (a device value, on the counts' device)."""
+    from cofusion_tpu_torch.models import surfel_model as sm
+
+    st = eng.state.models.stable
+    dev = st.count.device
+    return sum(sm.to_device(s.valid[0].sum(), dev) for s in sm.shards_of(st)[0])
+
+
+def _sharded_cell(cell, make, frames, start, mesh, expect, hooks=None, zero_last=True,
+                  after=None, probe=None):
+    """One cell run unsharded and sharded in this call (see `_sharded_run`):
+    the kernel launches must equal `expect`; `after(eng)` measures each
+    run's final engine (a dict); then one more frame under torch.profiler.
+    Poses, both tiers of every slot gathered, counts, flags, the fern
+    database, the rings, events, (CRF) masks and each frame's probes must
+    be bit-identical.  Prints the cell's line and returns both runs."""
     import numpy as np
     import torch
 
+    n = len(frames)
+    runs = {}
+    for kind, m in (("unsharded", None), ("sharded", mesh)):
+        run = _sharded_run(make, frames, start, m, hooks, zero_last, cell == "bench", probe)
+        eng = run["engine"]
+        if run["launches"] != expect:
+            raise RuntimeError(f"[sharded] {cell} {kind}: kernel launches {run['launches']}, "
+                               f"expected {expect}")
+        run.update(state=_whole_state(eng), poses=[p for _, p in eng.pose_log],
+                   events=list(run["events"]),
+                   masks=dict(eng.drain_segmentation(flush=True)) if cell == "bench" else {})
+        if m is not None and cell == "bench":
+            run["splat"] = _splat_on_maps(run["maps"], eng.cfg, eng.cam)
+        run["after"] = after(eng) if after is not None else {}
+        run["kernels"], run["busy_ms"] = _device_profile(eng, frames[-1])
+        runs[kind] = run
+        del eng, run["engine"], run["maps"]
+        torch.cuda.empty_cache()
+    ref, got = runs["unsharded"], runs["sharded"]
+    diff = _same_state(got["state"], ref["state"])
+    poses_equal = all(np.array_equal(a, b) for a, b in zip(got["poses"], ref["poses"]))
+    masks_equal = got["masks"].keys() == ref["masks"].keys() and all(
+        np.array_equal(got["masks"][t], ref["masks"][t]) for t in ref["masks"])
+    st = ref["state"].models
+    extra = {k: f"{v} / {ref['after'][k]}" if k in ref["after"] else v
+             for k, v in got["after"].items()}
+    _phase("sharded", cell=cell, frames=n, window=f"{start + 1}-{n}",
+           launches_per_frame={k: v / n for k, v in got["launches"].items()},
+           kernel_launches_per_frame=f"{got['kernels']} sharded / {ref['kernels']} unsharded",
+           device_busy_ms_per_frame=f"{got['busy_ms']:.3f} / {ref['busy_ms']:.3f}",
+           steady_ms_per_frame=f"{got['window_ms']:.3f} / {ref['window_ms']:.3f}",
+           own_peak_bytes_frame1=f"{got['peak'][0]} / {ref['peak'][0]}",
+           own_peak_bytes_after=f"{got['peak'][1]} / {ref['peak'][1]}",
+           state="bit-identical" if not diff else f"differs at {diff[:6]}",
+           poses="bit-identical" if poses_equal else "differ",
+           masks=("bit-identical" if masks_equal else "differ") if cell == "bench" else "n/a",
+           probes_equal=got["probes"] == ref["probes"],
+           events=got["events"], events_equal=got["events"] == ref["events"],
+           active=st.active.int().tolist(), active_count=st.store.count.tolist(),
+           stable_count=st.stable.count.tolist(), sync_debug=f"error on frames {start + 1}-{n}",
+           **extra)
+    if (diff or not poses_equal or not masks_equal or got["events"] != ref["events"]
+            or got["probes"] != ref["probes"]):
+        raise RuntimeError(f"[sharded] {cell}: the sharded run differs from the unsharded one")
+    return runs
+
+
+def _sharded_render_views(t5, mesh):
+    """`render_views` on phase 15's '-t 5 -confG 1.5' map, unsharded and
+    then sharded: views bit-identical, 2 splats a call, the splat bit-equal
+    to its plain version on the sharded tiers' own index maps; device ms
+    (torch.profiler over 2 calls) and wall ms of a call."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cofusion_tpu_torch.parallel import shard_engine_state
+
+    out = {}
+    for kind in ("unsharded", "sharded"):
+        if kind == "sharded":
+            t5.state = shard_engine_state(t5.state, mesh)
+        _sync_all()
+        _zero_counts()
+        views = t5.render_views()
+        launches = _read_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                t5.render_views()
+            _sync_all()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / 2
+        t0 = time.perf_counter()
+        t5.render_views()
+        out[kind] = dict(views=views, launches=launches, busy_ms=busy,
+                         wall_ms=(time.perf_counter() - t0) * 1e3)
+    m = t5.state.models
+    rows = _splat_on_views(t5, [("active tier", m.store, t5.cfg.time_delta, True),
+                                ("stable tier", m.stable, 1 << 30, True)])
+    got, ref = out["sharded"], out["unsharded"]
+    same = all(np.array_equal(got["views"][k], ref["views"][k]) for k in ref["views"])
+    _phase("sharded", cell="render_views", state="-t 5 -confG 1.5, 30 orbit frames",
+           views="bit-identical" if same else "differ",
+           valid_pixels=int(ref["views"]["valid"].sum()),
+           launches_per_call=f"{got['launches']} sharded / {ref['launches']} unsharded",
+           device_ms_per_call=f"{got['busy_ms']:.3f} / {ref['busy_ms']:.3f}",
+           wall_ms_per_call=f"{got['wall_ms']:.3f} / {ref['wall_ms']:.3f}")
+    for row in rows:
+        _phase("kernels", kernel="splat_window", on="render_views, sharded", **row, bar="bit-equal")
+    if not same or got["launches"]["splat_window"] != 2 or not ref["views"]["valid"].any():
+        raise RuntimeError(f"[sharded] render_views: views {same}, launches {got['launches']}")
+    if not rows[1]["valid_pixels"]:
+        raise RuntimeError("[sharded] render_views: the stable tier's view is empty")
+    return got["launches"]
+
+
+def phase_sharded(dev, static_frames, crf_frames, drift_frames, drift_gt, t5=None):
+    """On a 4-shard mesh, each run against the unsharded run of the same
+    call: the static cell's first 16 frames and the bench workload's first 26
+    (its first spawn at frame 19, then 6 more; each run's last frame at
+    time delta 0); phase 10's `-static -rl -cl` cell (20 frames); phase
+    11's drift at time delta 3 (the stable tier fills, a loop closes with
+    surfels in both tiers); phase 12's blackout (lost, then recovered);
+    and `render_views` on phase 15's '-t 5' map.  Every pose, both tiers
+    of every slot, counts, flags, the fern database, the rings, lifecycle
+    events, (CRF) masks and views bit-identical; the kernels' launches as
+    unsharded; the splat bit-equal to its plain version on the sharded
+    step's own combined maps, the sharded loop block's and
+    `render_views`'; kernel launches, device busy ms, steady ms per frame
+    and each run's own peak memory, and the loop block's device ms and
+    peak memory, sharded and unsharded.  Returns the kernel launches of
+    the sharded bench and '-rl -cl' runs and of one sharded
+    `render_views` call."""
+    import numpy as np
+    import torch
+
+    from cofusion_tpu_torch.config import CameraConfig, CoFusionConfig, FusionParams
+    from cofusion_tpu_torch.engine import CoFusion
+    from cofusion_tpu_torch.models import surfel_model as sm
     from cofusion_tpu_torch.parallel import make_mesh
 
     mesh = make_mesh(SHARDS, "cuda", virtual=torch.cuda.device_count() < SHARDS)
     cards = [f"{d}: {torch.cuda.get_device_name(d)}" for d in mesh.distinct_devices]
     _phase("sharded", shards=SHARDS, mesh=[str(d) for d in mesh.devices], distinct_cards=cards,
            virtual=torch.cuda.device_count() < SHARDS)
-    cells = (("static", lambda: _engine(dev), static_frames, 2),
-             ("bench", lambda: _multi_engine(dev), crf_frames[:SHARD_MULTI_FRAMES], SHARD_MULTI_WINDOW))
-    launches_bench = None
-    for cell, make, frames, start in cells:
-        n = len(frames)
-        runs = {}
-        for kind, m in (("unsharded", None), ("sharded", mesh)):
-            run = _sharded_run(make, frames, start, m)
-            eng = run["engine"]
-            if run["launches"] != {"bilateral_filter": n, "splat_window": n}:
-                raise RuntimeError(f"[sharded] {cell} {kind}: kernel launches {run['launches']}, "
-                                   f"expected {n} each")
-            run.update(state=_whole_state(eng), poses=[p for _, p in eng.pose_log],
-                       events=list(run["events"]),
-                       masks=dict(eng.drain_segmentation(flush=True)) if cell == "bench" else {})
-            if m is not None:
-                run["splat"] = _splat_on_maps(run["maps"], eng.cfg, eng.cam)
-            run["kernels"], run["busy_ms"] = _device_profile(eng, frames[-1])
-            runs[kind] = run
-            del eng, run["engine"], run["maps"]
-            torch.cuda.empty_cache()
-        ref, got = runs["unsharded"], runs["sharded"]
-        diff = _same_state(got["state"], ref["state"])
-        poses_equal = all(np.array_equal(a, b) for a, b in zip(got["poses"], ref["poses"]))
-        masks_equal = got["masks"].keys() == ref["masks"].keys() and all(
-            np.array_equal(got["masks"][t], ref["masks"][t]) for t in ref["masks"])
-        st = ref["state"].models
-        _phase("sharded", cell=cell, frames=n, window=f"{start + 1}-{n}",
-               launches_per_frame={k: v / n for k, v in got["launches"].items()},
-               kernel_launches_per_frame=f"{got['kernels']} sharded / {ref['kernels']} unsharded",
-               device_busy_ms_per_frame=f"{got['busy_ms']:.3f} / {ref['busy_ms']:.3f}",
-               steady_ms_per_frame=f"{got['window_ms']:.3f} / {ref['window_ms']:.3f}",
-               own_peak_bytes_frame1=f"{got['peak'][0]} / {ref['peak'][0]}",
-               own_peak_bytes_after=f"{got['peak'][1]} / {ref['peak'][1]}",
-               state="bit-identical" if not diff else f"differs at {diff[:6]}",
-               poses="bit-identical" if poses_equal else "differ",
-               masks=("bit-identical" if masks_equal else "differ") if cell == "bench" else "n/a",
-               events=got["events"], events_equal=got["events"] == ref["events"],
-               active=st.active.int().tolist(), active_count=st.store.count.tolist(),
-               stable_count=st.stable.count.tolist(), sync_debug=f"error on frames {start + 1}-{n}")
-        if cell == "bench":
-            _phase("sharded", cell=cell, splat_on_sharded_maps=got["splat"], bar="bit-equal")
-            launches_bench = got["launches"]
-        if diff or not poses_equal or not masks_equal or got["events"] != ref["events"]:
-            raise RuntimeError(f"[sharded] {cell}: the sharded run differs from the unsharded one")
-        if not (st.stable.count > 0).any() or (cell == "bench" and not st.active[1:].any()):
-            raise RuntimeError(f"[sharded] {cell}: no expel into the stable tier, or no object slot")
-    return launches_bench
+
+    def once_a_frame(n):
+        return {"bilateral_filter": n, "splat_window": n}
+
+    def loop_splats(n):  # the init render, then 4 splats a frame
+        return {"bilateral_filter": n, "splat_window": 1 + 4 * (n - 1)}
+
+    frames = static_frames[:SHARD_STATIC_FRAMES]
+    runs = _sharded_cell("static", lambda: _engine(dev), frames, 2, mesh,
+                         once_a_frame(len(frames)))
+    if not (runs["unsharded"]["state"].models.stable.count > 0).any():
+        raise RuntimeError("[sharded] static: no expel into the stable tier")
+    bench_frames = crf_frames[:SHARD_MULTI_FRAMES]
+    runs = _sharded_cell("bench", lambda: _multi_engine(dev), bench_frames, SHARD_MULTI_WINDOW,
+                         mesh, once_a_frame(len(bench_frames)))
+    _phase("sharded", cell="bench", splat_on_sharded_maps=runs["sharded"]["splat"], bar="bit-equal")
+    launches_bench = runs["sharded"]["launches"]
+    st = runs["unsharded"]["state"].models
+    if not (st.stable.count > 0).any() or not st.active[1:].any():
+        raise RuntimeError("[sharded] bench: no expel into the stable tier, or no object slot")
+
+    # (a) '-static -rl -cl': the loop block's cost on each run's final state
+    def loop_after(eng):
+        out = _loop_block_cost(eng)
+        if isinstance(eng.state.models.store, sm.ShardedStore):
+            out["splat_on_loop_maps"] = _splat_on_loop_maps(eng)
+        return out
+
+    frames = static_frames[:LOOP_FRAMES]
+    runs = _sharded_cell("rl_cl", lambda: _loop_engine(dev), frames, 2, mesh,
+                         loop_splats(len(frames)), zero_last=False, after=loop_after)
+    launches_loop = runs["sharded"]["launches"]
+    if any(lost for lost, _ in runs["unsharded"]["probes"]):
+        raise RuntimeError("[sharded] rl_cl: the orbit was lost")
+
+    # (b) the drift at time delta 3: the map stamped old (it ages out into
+    # the stable tier) and the camera drifted after frame 6
+    n_warm = 6
+
+    def drift_after(eng):
+        err = float(np.linalg.norm(eng.camera_pose()[:3, 3] - drift_gt[-1][:3, 3]))
+        out = dict(_loop_block_cost(eng), camera_err_m=f"{err:.6f}")
+        if isinstance(eng.state.models.store, sm.ShardedStore):
+            out["splat_on_loop_maps"] = _splat_on_loop_maps(eng)
+        return out
+
+    runs = _sharded_cell(
+        "drift", lambda: _loop_engine(dev, reloc=False, time_delta=SHARD_DRIFT_TD, **LOOP_FUSION),
+        drift_frames, 2, mesh, loop_splats(len(drift_frames)),
+        hooks={n_warm: lambda e: _age_and_drift(e, AGED_STAMP)}, zero_last=False,
+        after=drift_after,
+        probe=lambda e: (e.state.lost, e._last_outputs.loop_closed, _stable_valid(e)))
+    probes = runs["unsharded"]["probes"]
+    closed_at = [k for k, p in enumerate(probes, 1) if p[1]]
+    stable_at = {k: probes[k - 2][2] for k in closed_at}  # before the closing frame
+    moved = {k: probes[k - 2][2] - probes[k - 1][2] for k in closed_at}
+    _phase("sharded", cell="drift", closed_at_frames=closed_at,
+           stable_valid_before_closing=stable_at, stable_rows_moved_to_active=moved,
+           bar="a closure fires with a non-empty stable tier")
+    if not closed_at or not all(stable_at.values()):
+        raise RuntimeError(f"[sharded] drift: closures at {closed_at}, stable tier {stable_at}")
+
+    # (c) the blackout: lost in it, recovered after it
+    cam = CameraConfig()
+    frames = _blackout_frames(cam)
+    runs = _sharded_cell("blackout",
+                         lambda: _loop_engine(dev, close=False, fern_min_age=3,
+                                              confidence_global=1.0),
+                         frames, 2, mesh, once_a_frame(len(frames)), zero_last=False)
+    lost = [bool(p[0]) for p in runs["unsharded"]["probes"]]
+    _phase("sharded", cell="blackout", lost_frames=[k for k, x in enumerate(lost, 1) if x],
+           bar="lost in the blackout, recovered after it")
+    if any(lost[:5]) or not any(lost[5:19]) or lost[-1]:
+        raise RuntimeError(f"[sharded] blackout: lost {lost}")
+
+    # (d) render_views on phase 15's map
+    if t5 is None:
+        t5 = CoFusion(CoFusionConfig(camera=cam, max_models=1, time_delta=5),
+                      fusion_params=FusionParams(depth_cutoff=4.5, confidence_global=1.5), device=dev)
+        for f in static_frames:
+            t5.process_frame(f)
+    launches_render = _sharded_render_views(t5, mesh)
+    return launches_bench, launches_loop, launches_render
 
 
 def main(argv=None) -> int:
@@ -2152,7 +2396,7 @@ def main(argv=None) -> int:
     cam = CameraConfig()
     if "kernels" in groups:
         kern = phase_kernels(dev, frames[0]["depth"], opts.baseline)
-    static_eng = None
+    static_eng = t5 = None
     if "static" in groups:
         launches_static, static_eng = phase_main_path(dev, frames, gt)
         phase_timing(lambda: _engine(dev), frames, static_eng)
@@ -2187,7 +2431,7 @@ def main(argv=None) -> int:
 
     if "surfaces" in groups:
         launches_gt_pose = phase_gt_pose(dev, frames, gt)
-        launches_render = phase_render_views(dev, frames, static_eng)
+        launches_render, t5 = phase_render_views(dev, frames, static_eng)
         del static_eng
         phase_checkpoint(dev, frames)
         phase_hot_params(dev)
@@ -2199,7 +2443,10 @@ def main(argv=None) -> int:
     if "sharded" in groups:
         unique = make_multi_object_frames(cam, 12)
         crf_frames = [dict(unique[i % 12], mask=None, timestamp=i) for i in range(SHARD_MULTI_FRAMES)]
-        launches_sharded = phase_sharded(dev, frames, crf_frames)
+        drift_frames, drift_gt, _ = make_sequence(cam, 10, kind="still")
+        launches_sharded, launches_sharded_loop, launches_sharded_render = phase_sharded(
+            dev, frames, crf_frames, drift_frames, drift_gt, t5)
+    del t5
     _phase("done", seconds=f"{time.perf_counter() - _T0:.1f}")
 
     if opts.only:
@@ -2213,7 +2460,9 @@ def main(argv=None) -> int:
          "launches": launches[name], "launches_multi": launches_multi[name],
          "launches_static": launches_static[name], "launches_gt_pose": launches_gt_pose[name],
          "launches_render": launches_render[name], "launches_cli": launches_cli[name],
-         "launches_sharded": launches_sharded[name], **kern[name]}
+         "launches_sharded": launches_sharded[name],
+         "launches_sharded_loop": launches_sharded_loop[name],
+         "launches_sharded_render": launches_sharded_render[name], **kern[name]}
         for name, (src, rep) in sources.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -35,8 +35,10 @@ pose-log readers synchronise on demand.
 A state sharded over a device mesh (`parallel.shard_engine_state`: both
 tiers' surfel axes split, everything else whole on the mesh's first device)
 takes the same step, its per-surfel passes shard by shard, bit for bit
-the unsharded step; '-rl', '-cl' and `render_views` refuse it (ROADMAP
-A15b).
+the unsharded step, with '-rl', '-cl' and `render_views` too: the loop
+block samples its graph nodes from both tiers' shards by global rank,
+warps and re-stamps each shard on its own device and exchanges the tiers'
+rows through the sharded expel and append.
 
 The state keeps the JAX engine's layout — a leading (M,) model axis on every
 per-model leaf, the same fields in the same order — so convert.py carries a
@@ -178,13 +180,20 @@ def _empty_stores(M: int, capacity: int, dev) -> SurfelStore:
     )
 
 
-def _with_slot0(stacked: SurfelStore, one: SurfelStore) -> SurfelStore:
-    """`stacked` with slot 0 replaced by `one`: a new leading axis for one
-    model; with more slots, copied in place into the stacked leaves."""
+def _slot0(stores):
+    """Slot 0's whole store as a store of its own (views): `_unbatch` of a
+    plain store, every shard of a sharded one."""
+    return _slot_store(stores, 0, stores.capacity, stores.count[0])
+
+
+def _with_slot0(stacked, one):
+    """`stacked` with slot 0 replaced by `one` (a `_slot0` layout): a new
+    leading axis for one model; with more slots, copied in place into the
+    stacked leaves, shard by shard where sharded."""
     if stacked.count.shape[0] == 1:
-        return _stack([one])
-    for a, b in zip(stacked, one):
-        a[0].copy_(b)
+        return _with_model_axis(one)
+    _write_slot(stacked, 0, one)
+    stacked.count[0].copy_(one.count)
     return stacked
 
 
@@ -318,7 +327,7 @@ def _close_loop(state: EngineState, store0, stable0, pose0, conf0, lost, fern, c
 
     # graph nodes over the WHOLE map's time range (Deformation.cpp:207):
     # the stable tier first (old times), then the active tier
-    graph = df.sample_graph(sm.concat_stores(stable0, store0), cfg.deform_nodes)
+    graph = df.sample_graph_tiers(stable0, store0, cfg.deform_nodes)
     graph, err = df.optimize(graph, src, times, tgt, valid)
     ok = torch.isfinite(err)
     if fern is not None:
@@ -330,8 +339,9 @@ def _close_loop(state: EngineState, store0, stable0, pose0, conf0, lost, fern, c
     warped_s = df.refresh_timestamps(df.apply_to_surfels(graph, stable0), est, cam, tick, dc, conf0)
     # stable surfels whose stamps were refreshed are back in the window:
     # they move to the active tier (one expel block; overflow drops)
-    fresh = warped_s.valid & (warped_s.last_time >= tickf)
-    stable_new, blk = sm.expel_split(warped_s, warped_s.valid, fresh, cfg.expel_block)
+    fresh = sm.per_shard(warped_s, lambda s: s.valid & (s.last_time >= tickf))
+    stable_new, blk = sm.expel_split(warped_s, sm.per_shard(warped_s, lambda s: s.valid), fresh,
+                                     cfg.expel_block)
     active_new = sm.append(warped_a, blk, blk.valid)
 
     closed = accepted & ok
@@ -344,7 +354,7 @@ def _close_loop(state: EngineState, store0, stable0, pose0, conf0, lost, fern, c
     hist_t = ((tick - 1) - torch.remainder(tick - 2 - j, cap)).to(torch.float32)
     hist0 = state.pose_history[:, 0]
     hist0.copy_(torch.where(closed, df.apply_to_poses(graph, hist0, hist_t), hist0))
-    return (_select(closed, active_new, store0), _select(closed, stable_new, stable0),
+    return (sm.select(closed, active_new, store0), sm.select(closed, stable_new, stable0),
             torch.where(closed, est, pose0), closed)
 
 
@@ -391,15 +401,9 @@ def _step(
     models = state.models
     dev = rgb.device
     depth_cutoff = fparams["depth_cutoff"]
-    if isinstance(models.store, sm.ShardedStore):
-        if use_reloc or close_loops:
-            raise NotImplementedError(
-                "relocalisation ('-rl') and loop closure ('-cl') on a sharded state are not "
-                "ported yet (ROADMAP A15b)"
-            )
-        if models.store.count.device != dev:
-            raise ValueError(f"the state is sharded from {models.store.count.device}, "
-                             f"the frame is on {dev}")
+    if isinstance(models.store, sm.ShardedStore) and models.store.count.device != dev:
+        raise ValueError(f"the state is sharded from {models.store.count.device}, "
+                         f"the frame is on {dev}")
 
     # --- preprocess
     intensity = pp.rgb_to_intensity(rgb)
@@ -578,7 +582,7 @@ def _step(
     loop_closed = torch.zeros((), dtype=torch.bool, device=dev)
     if close_loops:
         store0, stable0, pose0, loop_closed = _close_loop(
-            state, _unbatch(models_store), _unbatch(models_stable), new_pose[0],
+            state, _slot0(models_store), _slot0(models_stable), new_pose[0],
             models.conf_threshold[0], lost, fern, cam, cfg, tparams, fparams, tick,
         )
         models_store = _with_slot0(models_store, store0)
@@ -1401,16 +1405,12 @@ class CoFusion:
         (H, W): a blocking read-back."""
         st, cam, cfg = self.state, self.cam, self.cfg
         models = st.models
-        if isinstance(models.store, sm.ShardedStore):
-            raise NotImplementedError(
-                "render_views on a sharded state is not ported yet (ROADMAP A15b)"
-            )
         pose0, conf0 = models.pose[0], models.conf_threshold[0]
         dc = float(self.fusion.depth_cutoff)
         view = rz.splat_merge(
-            rz.splat_predict(_unbatch(models.store), pose0, cam, cfg, st.tick, cfg.time_delta,
+            rz.splat_predict(_slot0(models.store), pose0, cam, cfg, st.tick, cfg.time_delta,
                              dc, conf0),
-            rz.splat_predict(_unbatch(models.stable), pose0, cam, cfg, st.tick, 1 << 30, dc,
+            rz.splat_predict(_slot0(models.stable), pose0, cam, cfg, st.tick, 1 << 30, dc,
                              conf0),
         )
         return {

@@ -16,7 +16,9 @@ blocks, one per device of a mesh (cofusion_tpu_torch/parallel).  `compact`,
 `expel_split` and `append` take either form and give the sharded one the
 same rows, bit for bit: their only reductions over the surfel axis are
 integer cumsums, which a shard's local cumsum plus the exclusive prefix of
-the shards' totals reproduces exactly.
+the shards' totals reproduces exactly.  `concat_ranks` and `rows_of_rank`
+read rows of `concat_stores`' result from sharded tiers without building
+it.
 """
 
 from __future__ import annotations
@@ -327,6 +329,34 @@ def concat_stores(a: SurfelStore, b: SurfelStore) -> SurfelStore:
         count=torch.zeros((), dtype=torch.int32, device=a.px.device),
     )
     return compact(cat, cat.valid)
+
+
+def concat_ranks(a, b):
+    """The shards of `a` then `b` (their row order in `concat_stores(a,
+    b)`), each shard's valid rows' global ranks in that order
+    (`_global_ranks`), and the total count of valid rows."""
+    shards = shards_of(a)[0] + shards_of(b)[0]
+    ranks, total = _global_ranks([s.valid for s in shards])
+    return shards, ranks, total
+
+
+def rows_of_rank(shards, ranks, want: torch.Tensor, fields) -> list[torch.Tensor]:
+    """`fields` of the valid rows of global rank `want` (`concat_ranks`;
+    int64, on the first shard's device), which are rows `want` of
+    `concat_stores`' result, without building it; zeros where no row has
+    that rank.  Each shard binary-searches its nondecreasing ranks for the
+    first row reaching the wanted rank: the shard owns the rank where that
+    row is valid and has it, and the owner's values are kept."""
+    dev = want.device
+    out = torch.zeros((len(fields),) + want.shape, dtype=torch.float32, device=dev)
+    for sh, r in zip(shards, ranks):
+        dk = r.device
+        t = to_device(want, dk)
+        local = torch.clamp(torch.searchsorted(r, t), max=sh.capacity - 1)
+        owns = sh.valid.index_select(0, local) & (r.index_select(0, local) == t)
+        g = torch.stack([getattr(sh, f).index_select(0, local) for f in fields])
+        out = torch.where(to_device(owns, dev)[None], to_device(g, dev), out)
+    return list(out.unbind(0))
 
 
 def expel_split(

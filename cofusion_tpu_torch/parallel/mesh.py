@@ -25,9 +25,14 @@ Layout:
     the port's unsharded step bit for bit.  The port matches values, not
     layouts.
 
-Not sharded yet (ROADMAP A15b): relocalisation ('-rl'), loop closure
-('-cl') and `CoFusion.render_views` raise NotImplementedError on a sharded
-state.
+Relocalisation ('-rl') works on the frame and the fern database alone.
+Loop closure ('-cl') renders through the same shard-aware z-buffer, samples
+its graph nodes from both tiers' shards by global rank (no concatenation
+of the tiers on one device), warps and re-stamps each shard on its own
+device with the graph (a few KB) copied there, and moves refreshed stable
+surfels to the active tier by the sharded expel and append;
+`CoFusion.render_views` renders both sharded tiers.  All of them equal the
+unsharded port bit for bit.
 """
 
 from __future__ import annotations

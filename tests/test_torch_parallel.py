@@ -3,9 +3,10 @@ engine state over a device mesh — on the CPU, at n = 1, 2 and 8 shards
 (CPU shards, the counterpart of the JAX tests' 8 virtual CPU devices).
 
   (a) the mesh helpers (tests/test_parallel.py::test_mesh_helpers'
-      counterpart), the refusals: a capacity the mesh does not divide, too
-      few cards without `virtual`, '-rl', '-cl' and `render_views` on a
-      sharded state;
+      counterpart), the refusals: too few cards without `virtual`, a
+      tier capacity the mesh does not divide ('-rl', '-cl' and
+      `render_views` on a sharded state are held to the unsharded port in
+      tests/test_torch_parallel_loop.py);
   (b) each sharded primitive against the unsharded port, bit for bit, on
       cases built to cross shard boundaries: the z-buffer render (packed
       keys and the two-pass form above 2^19 surfels, depth ties across
@@ -159,16 +160,12 @@ def _fparams(eng, **kw):
 
 @pytest.mark.parametrize("n", SHARDS)
 def test_sharded_state_refuses_what_is_not_ported(n):
-    eng, rgb, depth = _static_engine()
+    """The one layout the port does not shard: a tier capacity the mesh
+    size does not divide (uneven blocks).  '-rl', '-cl' and `render_views`
+    take a sharded state: tests/test_torch_parallel_loop.py."""
+    eng, _, _ = _static_engine()
     eng.state = shard_engine_state(eng.state, _cpu_mesh(n))
     assert _is_sharded(eng.state)
-    with pytest.raises(NotImplementedError, match="A15b"):
-        eng.render_views()
-    for flag in ("use_reloc", "close_loops"):
-        with pytest.raises(NotImplementedError, match="A15b"):
-            te._step(eng.state, torch.from_numpy(rgb.astype(np.float32)), torch.from_numpy(depth),
-                     torch.zeros(CAM.shape, dtype=torch.int32), _fparams(eng), cam=CAM,
-                     cfg=eng.cfg, tparams=eng.tracking, **{flag: True})
     if n > 1:
         bad = eng.state._replace(models=eng.state.models._replace(
             store=sm.gathered(eng.state.models.store)._replace(
