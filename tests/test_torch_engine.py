@@ -40,6 +40,8 @@ from cofusion_tpu_torch import config as tcfg
 from cofusion_tpu_torch.engine import CoFusion, _step
 from cofusion_tpu_torch.utils import export as texport
 
+from torch_shared import shared  # noqa: F401  (a fixture)
+
 torch.set_num_threads(1)
 N_FRAMES = 12
 ONE_STEP_AFTER = 5
@@ -71,12 +73,10 @@ def _pose_bar(step):
     return 1e-5 + 2e-6 * step
 
 
-@pytest.fixture(scope="module")
-def data(small_cam, tmp_path_factory):
+def _jax_run(root, small_cam):
     """Frames decoded from a .klg log, and the JAX engine's run over them:
     per-frame poses and surfel counts, and numpy copies of its state after
     ONE_STEP_AFTER and ONE_STEP_AFTER + 1 frames."""
-    root = tmp_path_factory.mktemp("torch_engine")
     frames, gt, _ = make_sequence(small_cam, N_FRAMES, kind="orbit")
     klg = str(root / "orbit.klg")
     write_klg(klg, frames, small_cam.width, small_cam.height)
@@ -102,6 +102,13 @@ def data(small_cam, tmp_path_factory):
                 states=states, n_ply=n_ply)
 
 
+@pytest.fixture
+def data(shared, small_cam):
+    """The JAX run of `_jax_run`, made once per test session (its files in
+    the session's shared directory, which the tests only read)."""
+    return shared.get("torch_engine_jax", lambda: _jax_run(shared.fresh_dir("torch_engine"), small_cam))
+
+
 def _run_port(cam, frames):
     eng = CoFusion(_tcfg(cam), fusion_params=TFUSION, device="cpu")
     counts = []
@@ -111,9 +118,19 @@ def _run_port(cam, frames):
     return eng, [p[0] for _, p in eng.pose_log], counts
 
 
-@pytest.fixture(scope="module")
-def port_run(data, small_cam):
-    return _run_port(small_cam, data["frames"])
+def _tiers(eng):
+    return {tier: tuple(getattr(eng.state.models, tier)) for tier in ("store", "stable")}
+
+
+@pytest.fixture
+def port_run(shared, data, small_cam):
+    """The port's run over the same frames, made once per test session:
+    (both tiers' tensors by field, poses, counts)."""
+    def run():
+        eng, poses, counts = _run_port(small_cam, data["frames"])
+        return _tiers(eng), poses, counts
+
+    return shared.get("torch_engine_port", run)
 
 
 def test_orbit_matches_jax_engine(data, port_run):
@@ -163,20 +180,18 @@ def test_one_step_from_converted_jax_state(data, small_cam):
 
 
 def test_port_rerun_is_bit_identical(data, port_run, small_cam):
-    eng1, poses1, counts1 = port_run
+    tiers1, poses1, counts1 = port_run
     eng2, poses2, counts2 = _run_port(small_cam, data["frames"])
     assert counts1 == counts2
     for a, b in zip(poses1, poses2):
         np.testing.assert_array_equal(a, b)
+    tiers2 = _tiers(eng2)
     for tier in ("store", "stable"):
-        for name, a, b in zip(
-            eng1.state.models.store._fields,
-            getattr(eng1.state.models, tier), getattr(eng2.state.models, tier),
-        ):
+        for name, a, b in zip(eng2.state.models.store._fields, tiers1[tier], tiers2[tier]):
             assert torch.equal(a, b), f"{tier}.{name}"
 
 
-def test_cli_static_export_matches_jax_engine(data, small_cam):
+def test_cli_static_export_matches_jax_engine(data, small_cam, tmp_path):
     """`python -m cofusion_tpu_torch -l <klg> -static ...` on the CPU: the
     TUM pose file matches the JAX engine's pose log (within the pose bar
     plus the exporter's 6-significant-digit text), line for line in the JAX
@@ -184,10 +199,10 @@ def test_cli_static_export_matches_jax_engine(data, small_cam):
     from cofusion_tpu.utils.export import load_tum_trajectory, read_ply
 
     root = data["root"]
-    cal = root / "calib.txt"
+    cal = tmp_path / "calib.txt"
     cal.write_text(f"{small_cam.fx} {small_cam.fy} {small_cam.cx} {small_cam.cy} "
                    f"{small_cam.width} {small_cam.height}\n")
-    out = root / "port_out"
+    out = tmp_path / "port_out"
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=_REPO)
     proc = subprocess.run(
         [sys.executable, "-m", "cofusion_tpu_torch", "-l", data["klg"], "-cal", str(cal),

@@ -26,6 +26,8 @@ from cofusion_tpu_torch import convert
 from cofusion_tpu_torch.ops import fusion as tfu
 from cofusion_tpu_torch.ops import rasterize as trz
 
+from torch_shared import shared  # noqa: F401  (a fixture)
+
 torch.set_num_threads(1)
 RTOL, ATOL = 1e-5, 1e-6
 TICK = 3
@@ -52,7 +54,13 @@ def tcam(small_cam):
 
 
 @pytest.fixture(scope="module")
-def scene(small_cam):
+def scene(shared, small_cam):
+    """A JAX map of frame 0 and frame 2's fuse into it (once per test
+    session)."""
+    return shared.get("torch_fusion_scene", lambda: _scene(small_cam))
+
+
+def _scene(small_cam):
     cfg = CoFusionConfig(camera=small_cam, max_models=1, max_surfels=1 << 17)
     frames, gt, _ = make_sequence(small_cam, 3, kind="orbit")
     bil = jax.jit(jpp.bilateral_filter)

@@ -4,8 +4,8 @@ engine on the CPU: `tests/test_multimodel.py`'s exact configuration
 so the JAX package's compile cache serves both files; and a lifecycle
 scenario (spawn cooldown, unseen deactivation, smart delete against
 `-keep`, a recycled slot at identity pose).  Each engine comparison runs
-inside one test function (a module fixture would be rebuilt on every
-xdist worker).
+inside one test function; the JAX engines of one worker share one jitted
+step (tests/torch_shared.py `share_jax_steps`: one configuration).
 
 Bars:
   * camera poses within 1e-5 + 2e-6*step on every frame (the fp32
@@ -40,6 +40,8 @@ from cofusion_tpu_torch import config as tcfg
 from cofusion_tpu_torch import convert
 from cofusion_tpu_torch.engine import CoFusion, EngineState, _step
 
+from torch_shared import share_jax_steps
+
 torch.set_num_threads(1)
 M = 3
 
@@ -50,10 +52,10 @@ def _pose_bar(step):
 
 def _engines(cam, keep=False, **fusion):
     """A JAX engine and the port's, on test_multimodel.py's configuration."""
-    jeng = JaxCoFusion(
+    jeng = share_jax_steps(JaxCoFusion(
         CoFusionConfig(camera=cam, max_models=M, max_surfels=1 << 16),
         fusion_params=FusionParams(**fusion), enable_multi_model=True, keep_models=keep,
-    )
+    ))
     tcam = tcfg.CameraConfig(**dataclasses.asdict(cam))
     teng = CoFusion(
         tcfg.CoFusionConfig(camera=tcam, max_models=M, max_surfels=1 << 16),

@@ -32,6 +32,8 @@ from cofusion_tpu_torch import config as tcfg
 from cofusion_tpu_torch.ops import odometry as tod
 from cofusion_tpu_torch.ops import preprocess as tpp
 
+from torch_shared import shared  # noqa: F401  (a fixture)
+
 torch.set_num_threads(1)
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -52,7 +54,12 @@ def tconf(tcam):
 
 
 @pytest.fixture(scope="module")
-def pair(small_cam):
+def pair(shared, small_cam):
+    """Frame 0's map (JAX-rendered) and frame 2 (once per test session)."""
+    return shared.get("torch_odometry_pair", lambda: _pair(small_cam))
+
+
+def _pair(small_cam):
     cfg = CoFusionConfig(camera=small_cam, max_models=1, max_surfels=1 << 17)
     frames, gt, _ = make_sequence(small_cam, 6, kind="orbit")
     f0, f1 = frames[0], frames[2]
@@ -75,9 +82,13 @@ def pair(small_cam):
 
 
 @pytest.fixture(scope="module")
-def built(pair, small_cam, tcam, tconf):
+def built(shared, pair, small_cam, tcam, tconf):
     """(JAX frame pyramid, port frame pyramid, JAX model pyramid, port model
-    pyramid) from the same inputs."""
+    pyramid) from the same inputs (once per test session)."""
+    return shared.get("torch_odometry_built", lambda: _built(pair, small_cam, tcam, tconf))
+
+
+def _built(pair, small_cam, tcam, tconf):
     cam = small_cam
     cfg, filtered1, intensity1, pred_np, so3_ref, _ = pair
     image, vert_conf, normal_rad, _, valid = pred_np
@@ -166,9 +177,13 @@ def test_track_models_matches(pair, built, small_cam, tcam, tconf, icp_weight):
 
 
 @pytest.fixture(scope="module")
-def moving_pair(small_cam):
+def moving_pair(shared, small_cam):
     """Frame 0's map (JAX-rendered, one prediction for all three slots) and
-    frame 2 with its object mask (ids 0 and 1)."""
+    frame 2 with its object mask (ids 0 and 1), once per test session."""
+    return shared.get("torch_odometry_moving_pair", lambda: _moving_pair(small_cam))
+
+
+def _moving_pair(small_cam):
     cfg = CoFusionConfig(camera=small_cam, max_models=3, max_surfels=1 << 17)
     frames, _, _ = make_sequence(small_cam, 6, kind="orbit", moving_object=True)
     f0, f1 = frames[0], frames[2]
@@ -207,9 +222,14 @@ def test_mask_window_bounds_matches(moving_pair):
 
 
 @pytest.fixture(scope="module")
-def masked_built(moving_pair, small_cam, tcam):
+def masked_built(shared, moving_pair, small_cam, tcam):
     """JAX and port frame/model pyramids (3 slots) and the masked per-model
-    validity, as the engines' multi-model step builds them."""
+    validity, as the engines' multi-model step builds them (once per test
+    session)."""
+    return shared.get("torch_odometry_masked_built", lambda: _masked_built(moving_pair, small_cam, tcam))
+
+
+def _masked_built(moving_pair, small_cam, tcam):
     cfg, filtered1, intensity1, pred_np, _, mask = moving_pair
     image, vert_conf, normal_rad, _, valid = pred_np
     tconf = tcfg.CoFusionConfig(camera=tcam, max_models=3, max_surfels=1 << 17)

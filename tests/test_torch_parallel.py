@@ -33,9 +33,10 @@ engine state over a device mesh — on the CPU, at n = 1, 2 and 8 shards
       sharded.  JAX's sharded step is not run here: it aborts in XLA on a
       warm compilation cache (ROADMAP C7).
 
-The unsharded reference run is one module-level computation, made by
-whichever test asks first on a worker: no test depends on another's
-having run.
+The unsharded reference run is computed once per test session, by
+whichever test asks first on any worker, and shared with the others
+through the session's temporary directory (tests/torch_shared.py): no test
+depends on another's having run.
 """
 
 import dataclasses
@@ -65,6 +66,8 @@ from cofusion_tpu_torch.parallel import (
     Mesh, make_mesh, shard_engine_state, shard_frame, unshard_engine_state,
 )
 from cofusion_tpu_torch.utils import checkpoint
+
+from torch_shared import shared  # noqa: F401  (a fixture)
 
 torch.set_num_threads(1)
 SHARDS = [1, 2, 8]
@@ -450,8 +453,11 @@ def _play(eng, frames, on_first=None):
     return log, outs, snaps, events
 
 
-@functools.lru_cache(maxsize=None)
-def _reference():
+def _reference(shared):
+    return shared.get("parallel_crf_reference", _compute_reference)
+
+
+def _compute_reference():
     """The unsharded port's teleport run through process_frame, with the
     condition number of every slot's final 6x6 system in each step."""
     frames = _teleport()
@@ -479,17 +485,17 @@ def _reference():
                 tracking=eng.tracking, cfg=eng.cfg)
 
 
-def test_reference_run_spawns_and_expels():
-    ref = _reference()
+def test_reference_run_spawns_and_expels(shared):
+    ref = _reference(shared)
     assert any(o.spawned for o in ref["outs"]) and ref["log"][-1][1][1:].any()
     assert ("new", 1) in [e[1:] for e in ref["events"]]
     assert (ref["snaps"][-1].models.stable.count > 0).any()  # the time_delta = 0 step expelled
 
 
 @pytest.mark.parametrize("n", SHARDS)
-def test_crf_run_sharded_step(n):
+def test_crf_run_sharded_step(n, shared):
     """Graph 2 through `_step`: every step's outputs and whole state."""
-    ref = _reference()
+    ref = _reference(shared)
     mesh = _cpu_mesh(n)
     state = shard_engine_state(convert.state_from_numpy(ref["snaps"][0]), mesh)
     for k in range(1, N_STEPS + 1):
@@ -505,12 +511,12 @@ def test_crf_run_sharded_step(n):
 
 
 @pytest.mark.parametrize("n", SHARDS)
-def test_crf_run_sharded_process_frame(n, tmp_path):
+def test_crf_run_sharded_process_frame(n, tmp_path, shared):
     """Graph 2 through `process_frame` after `eng.state =
     shard_engine_state(eng.state, mesh)`: stats, outputs, listener events,
     whole states and the read-outs; a checkpoint of the sharded engine
     resumes whole."""
-    ref = _reference()
+    ref = _reference(shared)
     mesh = _cpu_mesh(n)
 
     def shard(eng):
@@ -556,8 +562,8 @@ def _jax_state(snap):
                                 JSplatMap(*map(jnp.asarray, snap.pred)))
 
 
-def test_unsharded_port_matches_jax_step():
-    ref = _reference()
+def test_unsharded_port_matches_jax_step(shared):
+    ref = _reference(shared)
     jcam = JCameraConfig(**dataclasses.asdict(CAM))
     jcfg = JCoFusionConfig(camera=jcam, max_models=3, max_surfels=1 << 13, superpixel_size=8)
     jeng = jeng_mod.CoFusion(jcfg, fusion_params=JFusionParams(**CRF_FUSION), enable_multi_model=True)

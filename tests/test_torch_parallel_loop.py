@@ -34,11 +34,11 @@ gathered, counts, poses, flags, `lost`, the fern database, the pose and
 mask rings, the carried prediction), the step outputs (`loop_closed`
 among them), the rendered views and (b) the read-outs and a checkpoint
 resumed whole equal the unsharded port's exactly.
-Each unsharded reference run is one module-level computation, made by
-whichever test asks first on a worker.
+Each run (unsharded or on n shards) is computed once per test session, by
+whichever test asks first on any worker, and shared with the others
+through the session's temporary directory (tests/torch_shared.py).
 """
 
-import functools
 import os
 import tempfile
 
@@ -65,6 +65,7 @@ from cofusion_tpu_torch.utils import checkpoint
 import test_torch_local_loop as tl
 import test_torch_parallel as tp
 import test_torch_reloc as tr
+from torch_shared import shared  # noqa: F401  (a fixture)
 
 torch.set_num_threads(1)
 SHARDS = [1, 2, 8]
@@ -110,13 +111,15 @@ def _play(eng, frames, n=None, hooks=None):
     return snaps, outs
 
 
-@functools.lru_cache(maxsize=None)
 def _drift_frames():
     return make_sequence(tcfg.CameraConfig(**CAM), DRIFT_FRAMES, kind="still")[0]
 
 
-@functools.lru_cache(maxsize=None)
-def _drift_run(n=None):
+def _drift_run(shared, n=None):
+    return shared.get(f"parallel_loop_drift_{n}", lambda: _compute_drift_run(n))
+
+
+def _compute_drift_run(n=None):
     """The drift run, unsharded (n None) or on n shards; then the final
     read-outs and the state a checkpoint of the engine resumes in a new,
     unsharded one."""
@@ -229,8 +232,8 @@ def test_warp_refresh_and_exchange_sharded(n):
 # (b) the drift run, (d) render_views
 
 
-def test_drift_reference_closes_with_both_tiers():
-    ref = _drift_run()
+def test_drift_reference_closes_with_both_tiers(shared):
+    ref = _drift_run(shared)
     k = ref["closed_at"][0]
     before, after = ref["snaps"][k - 1].models, ref["snaps"][k].models
     assert k > DRIFT_AT and int(before.stable.valid[0].sum()) > 1000
@@ -240,10 +243,10 @@ def test_drift_reference_closes_with_both_tiers():
 
 
 @pytest.mark.parametrize("n", SHARDS)
-def test_drift_run_sharded(n):
+def test_drift_run_sharded(n, shared):
     """Every frame, then the read-outs (`download_model`, `surfel_count`,
     the pose log) and a checkpoint of the sharded engine, resumed whole."""
-    got, ref = _drift_run(n), _drift_run()
+    got, ref = _drift_run(shared, n), _drift_run(shared)
     _assert_runs_equal(got, ref)
     assert got["count"] == ref["count"] and got["reads"].keys() == ref["reads"].keys()
     for key in ref["reads"]:
@@ -258,19 +261,21 @@ def _views_engine():
                     fusion_params=tcfg.FusionParams(**tl.FUSION), device="cpu")
 
 
-@functools.lru_cache(maxsize=None)
-def _views_state():
+def _views_state(shared):
     """An 80x64 orbit of 6 frames at time delta 1: what the orbit leaves
     behind ages into the stable tier, so both tiers render."""
-    eng = _views_engine()
-    for f in make_sequence(eng.cam, 6, kind="orbit")[0]:
-        eng.process_frame(f)
-    return tp._snapshot(eng.state)
+    def run():
+        eng = _views_engine()
+        for f in make_sequence(eng.cam, 6, kind="orbit")[0]:
+            eng.process_frame(f)
+        return tp._snapshot(eng.state)
+
+    return shared.get("parallel_loop_views", run)
 
 
 @pytest.mark.parametrize("n", SHARDS)
-def test_render_views_sharded(n):
-    snap = _views_state()
+def test_render_views_sharded(n, shared):
+    snap = _views_state(shared)
     eng = _views_engine()
     eng.state = convert.state_from_numpy(snap)
     ref = eng.render_views()
@@ -292,8 +297,11 @@ def test_render_views_sharded(n):
 # (c) the blackout run
 
 
-@functools.lru_cache(maxsize=None)
-def _blackout_run(n=None):
+def _blackout_run(shared, n=None):
+    return shared.get(f"parallel_loop_blackout_{n}", lambda: _compute_blackout_run(n))
+
+
+def _compute_blackout_run(n=None):
     cam = tcfg.CameraConfig(**CAM)
     eng = CoFusion(tcfg.CoFusionConfig(camera=cam, max_models=1, max_surfels=1 << 16),
                    fusion_params=tcfg.FusionParams(**tr.FUSION), enable_relocalization=True,
@@ -303,11 +311,12 @@ def _blackout_run(n=None):
 
 
 @pytest.mark.parametrize("n", SHARDS)
-def test_blackout_run_sharded(n):
-    ref = _blackout_run()
+def test_blackout_run_sharded(n, shared):
+    got = _blackout_run(shared, n)
+    ref = _blackout_run(shared)
     lost = [bool(s.lost) for s in ref["snaps"]]
     assert not any(lost[:6]) and any(lost[6:20]) and not lost[-1], lost
-    _assert_runs_equal(_blackout_run(n), ref)
+    _assert_runs_equal(got, ref)
 
 
 # ---------------------------------------------------------------------------
@@ -337,9 +346,9 @@ def test_multi_model_drift_sharded_8():
 # (f) the closing frame through the JAX package's unsharded step
 
 
-def test_closing_frame_replayed_through_jax(monkeypatch):
+def test_closing_frame_replayed_through_jax(monkeypatch, shared):
     frames = _drift_frames()
-    run = _drift_run(8)
+    run = _drift_run(shared, 8)
     k = run["closed_at"][0]
     before, after = run["snaps"][k - 1], run["snaps"][k]
     teng = _drift_engine()

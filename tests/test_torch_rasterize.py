@@ -27,6 +27,8 @@ from cofusion_tpu_torch import convert
 from cofusion_tpu_torch.ops import cuda_splat
 from cofusion_tpu_torch.ops import rasterize as trz
 
+from torch_shared import shared  # noqa: F401  (a fixture)
+
 torch.set_num_threads(1)
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -184,9 +186,14 @@ def test_splat_from_imap_passes_views_the_kernel_takes(batched, monkeypatch):
 
 
 @pytest.fixture(scope="module")
-def scene(small_cam):
+def scene(shared, small_cam):
     """A JAX-initialised map of frame 0 and the pose of frame 3, converted to
-    the port: both packages render the identical store."""
+    the port: both packages render the identical store (once per test
+    session)."""
+    return shared.get("torch_rasterize_scene", lambda: _scene(small_cam))
+
+
+def _scene(small_cam):
     frames, gt, _ = make_sequence(small_cam, 4, kind="orbit")
     f0 = frames[0]
     rgb = jnp.asarray(f0["rgb"], jnp.float32)

@@ -29,6 +29,8 @@ from cofusion_tpu.ops import segmentation as jsg
 from cofusion_tpu_torch import config as tcfg
 from cofusion_tpu_torch.ops import segmentation as tsg
 
+from torch_shared import shared  # noqa: F401  (a fixture)
+
 torch.set_num_threads(1)
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -63,8 +65,14 @@ def test_slic_assign_matches(frame, small_cam, S):
 
 
 @pytest.fixture(scope="module", params=[6, 16])
-def assigned(request, frame, small_cam):
+def assigned(request, shared, frame, small_cam):
+    """JAX's SLIC assignment of the frame at superpixel size 6 or 16 (once
+    per test session)."""
     S = request.param
+    return shared.get(f"torch_segmentation_assigned_{S}", lambda: _assigned(frame, small_cam, S))
+
+
+def _assigned(frame, small_cam, S):
     jc, tc = _cfgs(small_cam, S)
     assign = np.asarray(jax.jit(jsg.slic_assign, static_argnums=1)(jnp.asarray(frame["rgb"]), jc))
     GH, GW = small_cam.height // S, small_cam.width // S

@@ -5,8 +5,10 @@ with a moving object, GT masks ('-es -ep -em', 4 model slots).
 
 Bars: the JSON line each evaluator prints is the same string, for every
 flag combination; `view --no-png` writes the same view.html bytes.  The
-export directory is made once per worker (module fixture: the tests read
-it and never change it, so the order xdist runs them in does not matter).
+export directory is made once per test session, by whichever worker asks
+first, in the session's shared temporary directory (tests/torch_shared.py):
+the tests read it and never change it, so the order xdist runs them in
+does not matter.
 """
 
 import contextlib
@@ -23,6 +25,8 @@ from cofusion_tpu import cli as jcli
 from cofusion_tpu.io.synthetic import make_sequence
 from cofusion_tpu_torch.tools import evaluate as tevaluate
 from cofusion_tpu_torch.tools import view as tview
+
+from torch_shared import shared  # noqa: F401  (a fixture)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -41,10 +45,9 @@ def _run(main, argv) -> tuple[int, str]:
     return rc, out.getvalue()
 
 
-@pytest.fixture(scope="module")
-def jax_export(tmp_path_factory, small_cam):
-    """(export dir, GT poses .npy, GT mask dir) of a JAX CLI run."""
-    root = tmp_path_factory.mktemp("jax_export")
+def _jax_export(root, small_cam):
+    """(export dir, GT poses .npy, GT mask dir) of a JAX CLI run, written
+    under `root`."""
     frames, gt, _ = make_sequence(small_cam, 6, kind="orbit", moving_object=True)
     data, masks = root / "seq", root / "gt_masks"
     data.mkdir()
@@ -66,6 +69,13 @@ def jax_export(tmp_path_factory, small_cam):
     np.save(gt_npy, np.stack(gt))
     assert (out / "poses-1.txt").exists() and (out / "cloud-0.ply").exists()
     return str(out), str(gt_npy), str(masks)
+
+
+@pytest.fixture
+def jax_export(shared, small_cam):
+    """(export dir, GT poses .npy, GT mask dir) of a JAX CLI run, made once
+    per session."""
+    return shared.get("jax_export", lambda: _jax_export(shared.fresh_dir("jax_export"), small_cam))
 
 
 @pytest.mark.parametrize("case", ["trajectory", "masks", "both", "mask_offset", "no_align"])
