@@ -50,7 +50,6 @@ from cofusion_tpu_torch.io import readers
 from cofusion_tpu_torch.io.ground_truth import GroundTruthOdometry
 from cofusion_tpu_torch.utils import checkpoint as ckpt
 from cofusion_tpu_torch.utils import export
-from cofusion_tpu_torch.utils.stopwatch import Stopwatch
 
 
 class Parse:
@@ -230,7 +229,7 @@ def _write_drained_masks(drained: list, opt: dict) -> None:
 def run(argv: list[str] | None = None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     reader, engine, opt = build_from_args(argv)
-    sw = Stopwatch.get()
+    sw = engine.sw
 
     if opt["resume"]:
         ckpt.load_engine(engine, opt["resume"])
