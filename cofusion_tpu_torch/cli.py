@@ -319,7 +319,7 @@ def run(argv: list[str] | None = None) -> int:
         ckpt.save_engine(engine, opt["checkpoint"])
         print(f"Checkpoint saved to {opt['checkpoint']}.")
     print(f"Processed {processed} frames.")
-    print(sw.report())
+    print(sw.report({"tracking_graph": engine.track_graphs.counts()}))
     return 0
 
 

@@ -10,7 +10,9 @@ exports (`render_views`).
 
 One frame (`_step`): bilateral filter (CUDA kernel) -> intensity -> FillIn
 of the carried prediction -> frame/model pyramids -> masked batched tracking
-of all M model slots (SO(3) pre-align, 3-level ICP+RGB Gauss-Newton) ->
+of all M model slots (SO(3) pre-align, 3-level ICP+RGB Gauss-Newton; on
+the card one CUDA graph replay from the engine's own `track_graphs`, keyed
+on the shapes and settings it bakes in, eager on the CPU: ops/odometry.py) ->
 segmentation and the model lifecycle (spawn, unseen deactivation, smart
 delete, slot recycling) -> with '-rl', lost detection, fern keyframing and
 recovery -> with '-cl', the global model's local loop (three window
@@ -214,7 +216,8 @@ class FernCandidate(NamedTuple):
     time: torch.Tensor   # () the keyframe's tick, where its constraints anchor
 
 
-def _relocalise(state: EngineState, A0, pose0, rgb, filtered, cam, cfg, tparams, fparams, tick):
+def _relocalise(state: EngineState, A0, pose0, rgb, filtered, cam, cfg, tparams, fparams, tick,
+                graphs=None):
     """Lost detection, fern keyframing and recovery of the global model
     (CoFusion.cpp:301-338, Ferns).  `A0` is its final GN system, `pose0` its
     tracked pose.  Returns (pose0, lost, unstable_count, fern_db,
@@ -257,7 +260,8 @@ def _relocalise(state: EngineState, A0, pose0, rgb, filtered, cam, cfg, tparams,
         pp.rgb_to_intensity(match.fern_rgb), match.fern_pose, cam_s, fern_cfg,
     )
     fern_res = od.get_incremental_transformation(
-        match.fern_pose, fern_frame, fern_model, intensity_s, cam_s, fern_cfg, fern_tp
+        match.fern_pose, fern_frame, fern_model, intensity_s, cam_s, fern_cfg, fern_tp,
+        graphs=graphs,
     )
     est = fern_res.pose
     photo = fern_ops.photometric_check(db, vm_s, rgb_s, est, match.fern_pose, match.fern_rgb,
@@ -283,7 +287,7 @@ def _relocalise(state: EngineState, A0, pose0, rgb, filtered, cam, cfg, tparams,
 
 
 def _close_loop(state: EngineState, store0, stable0, pose0, conf0, lost, fern, cam, cfg, tparams,
-                fparams, tick):
+                fparams, tick, graphs=None):
     """The global model's local loop and the deformation it feeds
     (CoFusion.cpp:387-459).  A healthy fern match (`fern`, None without
     '-rl') takes priority over the local loop as the constraint source of
@@ -309,7 +313,7 @@ def _close_loop(state: EngineState, store0, stable0, pose0, conf0, lost, fern, c
     res = ll.local_loop(
         old, pose0, act, cam, cfg, tparams, state.tick, td, dc, conf0,
         fparams["loop_cov_thresh"] / npx_scale, fparams["loop_err_thresh"],
-        fparams["loop_count_thresh"] * npx_scale,
+        fparams["loop_count_thresh"] * npx_scale, graphs=graphs,
     )
     accepted = res.accepted & ~lost & (res.num_constraints >= 3)
     src, tgt, valid, est, times = res.src, res.tgt, res.cons_valid, res.est_pose, None
@@ -381,6 +385,7 @@ def _step(
     close_loops: bool = False,
     use_gt_pose: bool = False,
     sw=NO_SECTIONS,
+    graphs=None,
 ):
     """One frame (CoFusion::processFrame).
 
@@ -395,7 +400,9 @@ def _step(
     loop_count_thresh.  `use_crf` selects the CRF segmentation over the
     slot-id `mask`.  `use_gt_pose` ('-p') takes `_step_gt_pose` with the
     (4, 4) device pose `fparams["gt_pose"]`.  `sw` (the engine's
-    Stopwatch) times the step's stages as `step.*` sections.
+    Stopwatch) times the step's stages as `step.*` sections; `graphs` (the
+    engine's `odometry.TrackGraphs`) replays every tracking solve of the step
+    as a CUDA graph on a CUDA device.
 
     The step consumes its input state: the stores, the stable tier and the
     pose and mask rings are updated in place (the JAX engine donates its
@@ -462,7 +469,7 @@ def _step(
             rgb_ok_b = tuple(v[None] for v in frame_pyr.rgb_ok)
         res = od.track_models(
             models.pose, frame_pyr, valid_b, rgb_ok_b, mpyr_b, state.so3_ref,
-            cam, cfg, tparams, icp_weight=fparams["icp_weight"],
+            cam, cfg, tparams, icp_weight=fparams["icp_weight"], graphs=graphs,
         )
         # inactive slots keep their pose and report identity/zero stats
         act = models.active
@@ -586,7 +593,8 @@ def _step(
     if use_reloc:
         with sw.section("step.reloc"):
             pose0, lost, unstable_count, fern_db, fern = _relocalise(
-                state, res.A[0], new_pose[0], rgb, filtered, cam, cfg, tparams, fparams, tick
+                state, res.A[0], new_pose[0], rgb, filtered, cam, cfg, tparams, fparams, tick,
+                graphs,
             )
         new_pose = _with_global(pose0, new_pose[1:])
         active_fuse = active_fuse & ~lost
@@ -597,7 +605,7 @@ def _step(
         with sw.section("step.loop"):
             store0, stable0, pose0, loop_closed = _close_loop(
                 state, _slot0(models_store), _slot0(models_stable), new_pose[0],
-                models.conf_threshold[0], lost, fern, cam, cfg, tparams, fparams, tick,
+                models.conf_threshold[0], lost, fern, cam, cfg, tparams, fparams, tick, graphs,
             )
         models_store = _with_slot0(models_store, store0)
         models_stable = _with_slot0(models_stable, stable0)
@@ -983,6 +991,7 @@ class CoFusion:
         # smart delete keeps only mature ones (CoFusion.cpp:612-626)
         self.keep_models = keep_models
         self.sw = Stopwatch()
+        self.track_graphs = od.TrackGraphs()
         self.state: EngineState | None = None
         self._timestamps: list[int] = []
         self._flushed_poses: list[np.ndarray] = []
@@ -1246,7 +1255,7 @@ class CoFusion:
                 cam=self.cam, cfg=self.cfg, tparams=self.tracking,
                 sparams=sparams, use_crf=use_crf,
                 use_reloc=self.enable_relocalization, close_loops=self.close_loops,
-                use_gt_pose=gt_pose is not None, sw=self.sw,
+                use_gt_pose=gt_pose is not None, sw=self.sw, graphs=self.track_graphs,
             )
             self._last_outputs = outputs
             self._timestamps.append(ts)
@@ -1351,11 +1360,14 @@ class CoFusion:
         self._inactive_model_listeners.append(fn)
 
     def stats(self) -> dict:
-        """Materialise the most recent frame's outputs (blocks on the device)."""
+        """Materialise the most recent frame's outputs (blocks on the device).
+        `tracking_graph`: this engine's `track_models` graph counters (host
+        ints: captures, replays, eager calls, evictions)."""
         with self.sw.section("download"):
             models = self.state.models
             st = {
                 "tick": self.state.tick,
+                "tracking_graph": self.track_graphs.counts(),
                 "poses": models.pose.cpu().numpy(),
                 "surfel_counts": (
                     models.store.count

@@ -56,12 +56,14 @@ def local_loop(
     cov_thresh,
     icp_err_thresh,
     icp_count_thresh,
+    graphs=None,
 ) -> LocalLoopResult:
     """One local-loop attempt for the global model.  `splat_active` is the
     ACTIVE prediction rendered at the post-tracking `pose` (the reference
     calls predict() right before this block, CoFusion.cpp:347), `old` the
     INACTIVE one.  `time`, `time_delta` and `conf_threshold` are the
-    renders' (the caller's), kept for the JAX signature."""
+    renders' (the caller's), kept for the JAX signature.  `graphs`: the
+    engine's `odometry.TrackGraphs`, for the solve."""
     # no GN stride: the gates are absolute, calibrated for full-resolution
     # correspondence counts
     loop_cfg = cfg.replace(use_so3=False, gn_stride_l0=1)
@@ -75,7 +77,7 @@ def local_loop(
     )
     res = od.get_incremental_transformation(
         pose, frame_pyr, model_pyr, frame_pyr.intensity[cfg.pyramid_levels - 1],
-        cam, loop_cfg, tparams,
+        cam, loop_cfg, tparams, graphs=graphs,
     )
 
     eye6 = torch.eye(6, dtype=torch.float32, device=pose.device)

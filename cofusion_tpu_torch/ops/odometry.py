@@ -14,6 +14,17 @@ The whole Gauss-Newton loop stays on the device with no host sync:
   * the normal equations are one batched (7xP)@(Px7) float32 matmul per
     model axis (TF32 off, device.py).
 
+On a CUDA device, handed the engine's `TrackGraphs`, `track_models` replays
+the solve (pre-align and all GN iterations, ~9,500 kernels for one model
+at 640x480) as one captured CUDA graph: a key's first call runs eagerly,
+its second captures without a host sync, later ones copy their input
+tensors into the graph's and replay, the same kernels in the same order,
+bit for bit the eager result.  The key is what a capture bakes in: the
+device, the inputs' structure and each input tensor's shape, dtype and
+strides (M and the level sizes), `cam`, `cfg`, `params`, the resolved icp
+weight and the TF32 switch; a changed key captures anew, never replays a
+stale graph.  On the CPU the solve runs eagerly.
+
 Math parity with the reference: ICP rows [n, s x n, n.(s-d)] in the previous
 camera frame; RGB rows weighted 1/(sigma+|diff|) with the reference's
 sigmaVal quirk (the inlier COUNT is the Huber offset); A = A_rgb + w^2 A_icp,
@@ -23,9 +34,11 @@ b = b_rgb + w^2 b_icp (consistent weighting, config.py).
 from __future__ import annotations
 
 import functools
+from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
+import torch.utils._pytree as pytree
 
 from cofusion_tpu_torch.config import CameraConfig, CoFusionConfig, TrackingParams
 from cofusion_tpu_torch.ops import lie
@@ -575,12 +588,24 @@ def track_models(
     cfg: CoFusionConfig,
     params: TrackingParams,
     icp_weight: float | None = None,
+    graphs: TrackGraphs | None = None,
 ) -> OdometryResult:
     """All M models' full GN solves, batched over the model axis.
 
     `poses` (M, 4, 4); `frame` the shared FramePyramid; `valid_b` /
     `rgb_ok_b` per-level (M, Hl, Wl) validity; `model_b` a ModelPyramid with
-    a leading (M,) axis; `icp_weight` overrides `params.icp_weight`."""
+    a leading (M,) axis; `icp_weight` overrides `params.icp_weight`.
+    `graphs` (the engine's `TrackGraphs`) replays the solve as a CUDA graph
+    on a CUDA device; without it, and on the CPU, the solve runs eagerly."""
+    inputs = (poses, frame, valid_b, rgb_ok_b, model_b, so3_ref_intensity)
+    statics = (cam, cfg, params, params.icp_weight if icp_weight is None else icp_weight)
+    if graphs is None:
+        return _solve(*inputs, *statics)
+    return graphs.run(inputs, statics)
+
+
+def _solve(poses, frame, valid_b, rgb_ok_b, model_b, so3_ref_intensity, cam, cfg, params, w):
+    """`track_models`' body, eager: what a graph captures."""
     M = poses.shape[0]
     dev = poses.device
     use_icp = not params.rgb_only
@@ -611,7 +636,6 @@ def track_models(
     st = _empty_stats(M, dev)
     zero66, zero6, zM = st["A"], st["b"], st["icp_err"]
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
-    w = params.icp_weight if icp_weight is None else icp_weight
 
     for lvl in range(levels - 1, -1, -1):
         cam_l = cam.at_level(lvl)
@@ -700,6 +724,100 @@ def track_models(
     )
 
 
+# ---------------------------------------------------------------------------
+# the solve as a CUDA graph
+
+
+def graph_key(leaves: list, spec, statics: tuple) -> tuple:
+    """What a captured solve bakes in: the device, the inputs' structure
+    (`spec`, None fields included), every input tensor's shape, dtype and
+    strides (M and the level sizes among them), `(cam, cfg, params,
+    icp_weight)` and the matmuls' TF32 switch."""
+    tensors = [t for t in leaves if isinstance(t, torch.Tensor)]
+    return (tensors[0].device, spec, tuple((tuple(t.shape), t.dtype, t.stride()) for t in tensors),
+            statics, torch.backends.cuda.matmul.allow_tf32)
+
+
+class _SolveGraph:
+    """One captured solve: its own copy of every input tensor, which a
+    replay fills, and the outputs the graph writes."""
+
+    def __init__(self, leaves: list, spec, statics: tuple):
+        dev = leaves[0].device
+        cam, cfg = statics[:2]
+        with torch.cuda.device(dev):
+            self.leaves = [t.clone() if isinstance(t, torch.Tensor) else t for t in leaves]
+            # the graph reads K and K^-1 by address: hold them, as the
+            # lru_cache may drop them
+            self.intrinsics = [_intrinsics(cam.at_level(lv), dev) for lv in range(cfg.pyramid_levels)]
+            self.graph = torch.cuda.CUDAGraph()
+            # captured on a side stream as `torch.cuda.graph` does, without
+            # its device sync and cache flush: the frame loop never waits;
+            # thread-local, as the readers' prefetch threads run on
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self.graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self.outputs = _solve(*pytree.tree_unflatten(self.leaves, spec), *statics)
+                finally:
+                    self.graph.capture_end()
+
+    def replay(self, leaves: list) -> OdometryResult:
+        for dst, src in zip(self.leaves, leaves):
+            if isinstance(dst, torch.Tensor):
+                dst.copy_(src)
+        self.graph.replay()
+        # the next replay overwrites the graph's outputs; callers keep poses
+        return OdometryResult(*(o.clone() for o in self.outputs))
+
+
+GRAPHS_HELD = 4  # the '-rl -cl' step tracks three keys a frame
+
+
+class TrackGraphs:
+    """`track_models`' CUDA graphs by `graph_key`, the least recently used
+    evicted past `GRAPHS_HELD`; each engine holds its own.
+    A key's first call runs eagerly: it fills `_intrinsics` and the
+    libraries' handles and workspaces, none of which a capture may create.
+    Its second call captures the solve on a side stream and replays it; every
+    later call copies its input tensors into the graph's and replays.  CPU
+    calls run eagerly.  `counts()` reads host counters only."""
+
+    def __init__(self):
+        self._graphs: OrderedDict = OrderedDict()  # key -> _SolveGraph, None until captured
+        self._counts = dict(captures=0, replays=0, eager=0, evictions=0)
+
+    def counts(self) -> dict[str, int]:
+        return dict(self._counts)
+
+    def run(self, inputs: tuple, statics: tuple) -> OdometryResult:
+        if inputs[0].device.type != "cuda":
+            self._counts["eager"] += 1
+            return _solve(*inputs, *statics)
+        leaves, spec = pytree.tree_flatten(inputs)
+        key = graph_key(leaves, spec, statics)
+        if key not in self._graphs:
+            self.admit(key)
+            self._counts["eager"] += 1
+            return _solve(*inputs, *statics)
+        self._graphs.move_to_end(key)
+        g = self._graphs[key]
+        if g is None:
+            g = self._graphs[key] = _SolveGraph(leaves, spec, statics)
+            self._counts["captures"] += 1
+        self._counts["replays"] += 1
+        return g.replay(leaves)
+
+    def admit(self, key) -> None:
+        """Enter a new key as the most recent, evicting the least recent
+        past `GRAPHS_HELD`."""
+        self._graphs[key] = None
+        if len(self._graphs) > GRAPHS_HELD:
+            self._graphs.popitem(last=False)
+            self._counts["evictions"] += 1
+
+
 def get_incremental_transformation(
     pose_prev: torch.Tensor,
     frame: FramePyramid,
@@ -708,16 +826,17 @@ def get_incremental_transformation(
     cam: CameraConfig,
     cfg: CoFusionConfig,
     params: TrackingParams,
+    graphs: TrackGraphs | None = None,
 ) -> OdometryResult:
     """One model's full solve against a whole (unmasked) frame: the JAX
-    package's unbatched tracker, as a one-model `track_models` call.
-    `pose_prev` (4, 4); returns the OdometryResult with its model axis
-    dropped (pose (4, 4), A (6, 6), scalars)."""
+    package's unbatched tracker, as a one-model `track_models` call
+    (`graphs` as there).  `pose_prev` (4, 4); returns the OdometryResult
+    with its model axis dropped (pose (4, 4), A (6, 6), scalars)."""
     res = track_models(
         pose_prev[None], frame, tuple(v[None] for v in frame.valid),
         tuple(v[None] for v in frame.rgb_ok),
         ModelPyramid(*(tuple(lv[None] for lv in field) for field in model)),
-        so3_ref_intensity, cam, cfg, params,
+        so3_ref_intensity, cam, cfg, params, graphs=graphs,
     )
     return OdometryResult(*(a[0] for a in res))
 

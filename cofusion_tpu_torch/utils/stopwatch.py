@@ -5,11 +5,12 @@ time to enqueue it, not device time.
 
 Always on: each section adds its host ms to a per-name total, count and
 last value (`timings()` feeds the CLI's '-fs' frame skip, `report()` its
-closing table).  With `spans_on` set, each section also opens a profiler
-range of its own name (a `torch.profiler` trace then holds it on the clock
-of its device records) and appends a `Span` to a list bounded at
-`MAX_SPANS`, read after the run with `spans()`.  Turn the switch between
-frames: a section that opened with it off records no span.
+closing table, with the host counters the caller hands it).  With
+`spans_on` set, each section also opens a profiler range of its own name
+(a `torch.profiler` trace then holds it on the clock of its device
+records) and appends a `Span` to a list bounded at `MAX_SPANS`, read after
+the run with `spans()`.  Turn the switch between frames: a section that
+opened with it off records no span.
 """
 
 from __future__ import annotations
@@ -89,13 +90,17 @@ class Stopwatch:
         """The spans recorded while `spans_on`, in the order they closed."""
         return list(self._spans)
 
-    def report(self) -> str:
+    def report(self, counters: dict[str, dict[str, int]] | None = None) -> str:
+        """The closing table, and below it each group of `counters`
+        ({group: {name: count}}) on a line of its own."""
         lines = ["section                          mean ms     last ms   calls"]
         for k in sorted(self._totals):
             lines.append(
                 f"{k:<30} {self._totals[k] / self._counts[k]:>10.2f} "
                 f"{self._last[k]:>10.2f} {self._counts[k]:>7d}"
             )
+        for group, counts in (counters or {}).items():
+            lines.append(f"{group}: " + " ".join(f"{k}={v}" for k, v in counts.items()))
         return "\n".join(lines)
 
 

@@ -110,6 +110,7 @@ def _stopwatch_alone(monkeypatch):
     assert [(s.name, s.parent, s.tick) for s in sw.spans()] == [("b", "a", 7), ("a", "", 7)]
     assert sw.dropped == 1 and sw.totals()["c"] == (sw.timings()["c"], 1)
     assert "a " in sw.report()
+    assert sw.report({"g": {"x": 1, "y": 2}}).endswith("\ng: x=1 y=2")
 
 
 @pytest.mark.parametrize("path", ["static", "crf", "gt_pose"])
