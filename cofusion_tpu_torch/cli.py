@@ -319,7 +319,8 @@ def run(argv: list[str] | None = None) -> int:
         ckpt.save_engine(engine, opt["checkpoint"])
         print(f"Checkpoint saved to {opt['checkpoint']}.")
     print(f"Processed {processed} frames.")
-    print(sw.report({"tracking_graph": engine.track_graphs.counts()}))
+    print(sw.report({"tracking_graph": engine.track_graphs.counts(),
+                     "fuse_graph": engine.fuse_graphs.counts()}))
     return 0
 
 

@@ -18,9 +18,11 @@ delete, slot recycling) -> with '-rl', lost detection, fern keyframing and
 recovery -> with '-cl', the global model's local loop (three window
 splats: the active view and both tiers' inactive views) and the
 deformation of its map and pose log -> per-slot fuse/clean (z-buffer
-render, fuse, overlay, clean, expel into the stable tier) -> window splat
-(CUDA kernel) of the next frame's prediction over all slots at once.
-Frame 1 takes `_init_state`.
+render, fuse, overlay, clean, expel into the stable tier; on the card one
+CUDA graph replay a slot from the engine's own `fuse_graphs`, which read
+and write the stacked active tier in place) -> window splat (CUDA kernel)
+of the next frame's prediction over all slots at once.  Frame 1 takes
+`_init_state`.
 
 The host loop is asynchronous: `process_frame` uploads the frame with a
 non-blocking copy and queues the step; nothing in it reads a device value
@@ -49,16 +51,19 @@ The state keeps the JAX engine's layout — a leading (M,) model axis on every
 per-model leaf, the same fields in the same order — so convert.py carries a
 JAX state across field for field.  The tick is a host int: the host counts
 frames anyway, and a device tick would need a read-back to drive the
-stagger phase.
+stagger phase.  The fuse/clean pass reads a 0-d float32 device copy of
+it, written each frame, so a captured pass reads the frame's tick.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from cofusion_tpu_torch.config import (
     CameraConfig, CoFusionConfig, FusionParams, SegmentationParams, TrackingParams,
@@ -192,11 +197,9 @@ def _slot0(stores):
 
 
 def _with_slot0(stacked, one):
-    """`stacked` with slot 0 replaced by `one` (a `_slot0` layout): a new
-    leading axis for one model; with more slots, copied in place into the
-    stacked leaves, shard by shard where sharded."""
-    if stacked.count.shape[0] == 1:
-        return _with_model_axis(one)
+    """`stacked` with slot 0 replaced by `one` (a `_slot0` layout), copied
+    in place into the stacked leaves, shard by shard where sharded: the
+    leaves keep their addresses, which the fuse/clean graphs read."""
     _write_slot(stacked, 0, one)
     stacked.count[0].copy_(one.count)
     return stacked
@@ -386,6 +389,7 @@ def _step(
     use_gt_pose: bool = False,
     sw=NO_SECTIONS,
     graphs=None,
+    fuse_graphs=None,
 ):
     """One frame (CoFusion::processFrame).
 
@@ -402,7 +406,8 @@ def _step(
     (4, 4) device pose `fparams["gt_pose"]`.  `sw` (the engine's
     Stopwatch) times the step's stages as `step.*` sections; `graphs` (the
     engine's `odometry.TrackGraphs`) replays every tracking solve of the step
-    as a CUDA graph on a CUDA device.
+    as a CUDA graph on a CUDA device, and `fuse_graphs` (its `FuseGraphs`)
+    each slot's fuse/clean pass.
 
     The step consumes its input state: the stores, the stable tier and the
     pose and mask rings are updated in place (the JAX engine donates its
@@ -438,7 +443,7 @@ def _step(
             pred_image = _with_global(filled.image, splat.image[1:])
     if use_gt_pose:
         return _step_gt_pose(state, rgb, depth, mask, filtered, intensity, fparams,
-                             cam=cam, cfg=cfg, tick=tick, sw=sw)
+                             cam=cam, cfg=cfg, tick=tick, sw=sw, fuse_graphs=fuse_graphs)
 
     with sw.section("step.tracking"):
         # --- tracking pyramids: one shared frame pyramid, per-model mask gates
@@ -623,7 +628,7 @@ def _step(
         new_stores, new_stables, imap_b = _fuse_clean_all(
             models_store, models_stable, new_pose, weight, models.model_id, models.conf_threshold,
             active_fuse, model_max_depth, depth, filtered, rgb, mask if multi else None,
-            cam, cfg, tick, fparams, global_may_idle=use_reloc, sw=sw,
+            cam, cfg, tick, fparams, global_may_idle=use_reloc, sw=sw, graphs=fuse_graphs,
         )
     # the next frame's prediction: one batched window splat over the
     # post-fuse renders, confidence-gated per model (splat.vert:58)
@@ -684,7 +689,8 @@ def _so3_ref(intensity: torch.Tensor, cfg: CoFusionConfig) -> torch.Tensor:
 
 
 def _step_gt_pose(state: EngineState, rgb, depth, mask, filtered, intensity, fparams, *,
-                  cam: CameraConfig, cfg: CoFusionConfig, tick: int, sw=NO_SECTIONS):
+                  cam: CameraConfig, cfg: CoFusionConfig, tick: int, sw=NO_SECTIONS,
+                  fuse_graphs=None):
     """'-p' ground-truth pose frame (CoFusion.cpp:340-343): tracking,
     segmentation, relocalisation and loop closure are skipped; the global
     pose is the given one and every active model fuses and cleans at its
@@ -701,7 +707,7 @@ def _step_gt_pose(state: EngineState, rgb, depth, mask, filtered, intensity, fpa
         new_stores, new_stables, _ = _fuse_clean_all(
             models.store, models.stable, new_pose, weight, models.model_id, models.conf_threshold,
             models.active, model_max_depth, depth, filtered, rgb, mask if M > 1 else None,
-            cam, cfg, tick, fparams, sw=sw,
+            cam, cfg, tick, fparams, sw=sw, graphs=fuse_graphs,
         )
     new_models = models._replace(
         store=new_stores,
@@ -741,13 +747,12 @@ def _step_gt_pose(state: EngineState, rgb, depth, mask, filtered, intensity, fpa
 
 
 def _reset_slots(stores, rs: torch.Tensor):
-    """The (M, N) stores with the slots where `rs` emptied (valid false,
-    count 0), shard by shard where sharded."""
-    if not isinstance(stores, sm.ShardedStore):
-        return stores._replace(valid=stores.valid & ~rs[:, None], count=torch.where(rs, 0, stores.count))
-    shards = tuple(sh._replace(valid=sh.valid & ~sm.to_device(rs, sh.px.device)[:, None])
-                   for sh in stores.shards)
-    return sm.ShardedStore(shards, torch.where(rs, 0, stores.count))
+    """Empty the slots of the (M, N) stores where `rs` holds (valid false,
+    count 0) in place, shard by shard where sharded; returns the stores."""
+    for sh in sm.shards_of(stores)[0]:
+        sh.valid.bitwise_and_(~sm.to_device(rs, sh.px.device)[:, None])
+    stores.count.masked_fill_(rs, 0)
+    return stores
 
 
 def _slot_store(stores, m: int, cap: int, count):
@@ -771,50 +776,114 @@ def _write_slot(stores, m: int, out) -> None:
             getattr(dst, f)[m, :src.capacity].copy_(getattr(src, f))
 
 
-def _with_model_axis(store):
-    """A one-model store with a new leading (1,) model axis (views)."""
-    if not isinstance(store, sm.ShardedStore):
-        return _stack([store])
-    shards = tuple(SurfelStore(*(getattr(sh, f)[None] for f in sm.DATA_FIELDS), count=None)
-                   for sh in store.shards)
-    return sm.ShardedStore(shards, store.count[None])
-
-
 def _empty_imap(H: int, W: int, dev) -> rz.IndexMap:
-    z1 = torch.zeros((H, W), dtype=torch.float32, device=dev)
-    z4 = torch.zeros((H, W, 4), dtype=torch.float32, device=dev)
+    """An empty index render, every field a tensor of its own."""
+    def z(*tail):
+        return torch.zeros((H, W) + tail, dtype=torch.float32, device=dev)
+
     return rz.IndexMap(
         index=torch.full((H, W), -1, dtype=torch.int32, device=dev),
-        vert_conf=z4, normal_rad=z4, color_time=z4, last_time=z1,
+        vert_conf=z(4), normal_rad=z(4), color_time=z(4), last_time=z(),
         valid=torch.zeros((H, W), dtype=torch.bool, device=dev),
     )
+
+
+# what an idle slot's pass returns, leaf by leaf: an empty expel block and
+# an empty index render
+_NO_BLOCK = SurfelStore(*(0.0 for _ in sm.DATA_FIELDS[:-1]), valid=False, count=0)
+_NO_IMAP = rz.IndexMap(index=-1, vert_conf=0.0, normal_rad=0.0, color_time=0.0, last_time=0.0,
+                       valid=False)
+
+
+class SlotInputs(NamedTuple):
+    """What one slot's fuse/clean pass reads besides the stacked stores:
+    tensors, or None where the pass does without (`model_id` without a
+    mask, `on` where the slot always fuses); `max_depth` is the run's depth
+    cutoff (a Python float) with one slot."""
+
+    pose: torch.Tensor            # (4, 4)
+    weight: torch.Tensor          # () fusion weight
+    model_id: torch.Tensor | None  # () int32 mask label
+    conf_threshold: torch.Tensor  # ()
+    on: torch.Tensor | None       # () bool: the slot fuses this frame
+    max_depth: object             # () tensor, or a Python float
+    depth: torch.Tensor           # (H, W) raw depth
+    filtered: torch.Tensor        # (H, W) bilateral-filtered depth
+    rgb: torch.Tensor             # (H, W, 3)
+    mask: torch.Tensor | None     # (H, W) int32 slot-id segmentation
+    tick: torch.Tensor            # () float32
+
+
+def _fuse_clean_slot(stores, m: int, x: SlotInputs, *, cam, cfg, phase: int, time_delta,
+                     outlier_coeff):
+    """Slot m's pass: z-buffer render, fuse, overlay, clean, age-out and
+    expel, the idle select (where `x.on` is given), and the slot's new rows
+    and count written back into the stacked `stores` in place.  Returns
+    (expel block, post-fuse index render).  `phase` is the tick's parity
+    (the stagger phase of `fuse`)."""
+    A = stores.capacity
+    cap = A if m == 0 else min(cfg.object_active_capacity, A)
+    count = stores.count[m] if m == 0 else torch.clamp(stores.count[m], max=cap)
+    store = _slot_store(stores, m, cap, count)
+    tick, max_d = x.tick, x.max_depth
+    fs = fu.make_frame_surfels(x.depth, x.filtered, x.rgb, cam, x.weight, max_d)
+    mask_ok = (
+        torch.ones(cam.shape, dtype=torch.bool, device=x.depth.device) if x.mask is None
+        else x.mask == x.model_id
+    )
+    imap = rz.predict_indices(store, x.pose, cam, tick, time_delta, max_d)
+    fused, aux = fu.fuse(
+        store, fs, x.depth, imap, mask_ok, x.pose, cam, cfg, tick, max_d, return_aux=True,
+        phase=phase,
+    )
+    imap2 = fu.overlay_imap(fused, imap, aux, fs, x.pose, cam, tick)
+    cleaned, keep = fu.clean_eval(
+        fused, imap2, x.filtered, x.pose, cam, tick, time_delta, x.conf_threshold, outlier_coeff,
+        mask=x.mask, mask_id=x.model_id,
+    )
+    # age-out migration: surfels past the window move to the stable tier
+    aged = sm.per_shard(
+        cleaned,
+        lambda s: (s.last_time > 0)
+        & ((sm.to_device(tick, s.px.device) - s.last_time) > float(time_delta)),
+    )
+    out, blk = sm.expel_split(cleaned, keep, aged, cfg.expel_block)
+    if x.on is not None:
+        out = sm.select(x.on, out, store)
+        blk = _select(x.on, blk, _NO_BLOCK)
+        imap2 = _select(x.on, imap2, _NO_IMAP)
+    _write_slot(stores, m, out)
+    stores.count[m].copy_(out.count)
+    return blk, imap2
 
 
 def _fuse_clean_all(
     stores, stables, new_pose, weight, model_ids, conf_thresholds, active_fuse,
     model_max_depth, depth, filtered, rgb, mask, cam, cfg, tick: int, fparams,
-    global_may_idle: bool = False, sw=NO_SECTIONS,
+    global_may_idle: bool = False, sw=NO_SECTIONS, graphs=None,
 ):
     """Per-model fuse + clean (CoFusion.cpp:463-489: predictIndices -> fuse
     -> overlay in place of the second predictIndices -> clean), plus the
     two-tier step: survivors that aged out of the time window move to the
     stable tier.  `mask` is the frame's slot-id segmentation (None: one
-    unmasked model).  Returns (new active stores, new stable stores,
-    post-fuse index renders (M, H, W, ...)).
+    unmasked model).  Returns (active stores, new stable stores, post-fuse
+    index renders (M, H, W, ...)).
 
-    The model axis is unrolled.  Object slots (m > 0) run on the
-    [:object_active_capacity] slice of the stacked store (an object's
-    surface is a small part of the background's; rows past the slice are
-    never valid).  An object slot that does not fuse this frame (inactive,
-    or smart-deleted) is computed all the same and selected back on the
-    device: the untouched store, an empty expel block and an empty index
-    map (the JAX engine skips it with `lax.cond`; a host branch here would
-    read `active_fuse` back).  Slot 0, the global model, always fuses,
+    The model axis is unrolled: one `_fuse_clean_slot` pass a slot, which
+    writes the slot's new rows and count into the stacked `stores` in
+    place (so the active stores returned are `stores`).  Object slots
+    (m > 0) run on the [:object_active_capacity] slice of the stacked store
+    (an object's surface is a small part of the background's; rows past the
+    slice are never valid).  An object slot that does not fuse this frame
+    (inactive, or smart-deleted) is computed all the same and selected back
+    on the device: the untouched store, an empty expel block and an empty
+    index map (the JAX engine skips it with `lax.cond`; a host branch here
+    would read `active_fuse` back).  Slot 0, the global model, always fuses,
     unless `global_may_idle` (relocalisation: fusion pauses while lost).
-    With more than one slot the results are written back into the stacked
-    leaves in place; the global model alone returns its new store.
-    `weight` is a list of per-slot 0-d weights.  `sw` times each slot's
-    pass as `step.fuse_clean.slot<m>`.
+    `weight` is a list of per-slot 0-d weights.  The pass reads the tick as
+    a 0-d float32 tensor on `depth`'s device.  `sw` times each slot's pass
+    as `step.fuse_clean.slot<m>`; `graphs` (the engine's `FuseGraphs`)
+    replays each slot's pass as a CUDA graph on a CUDA device.
 
     Sharded stores (cofusion_tpu_torch/parallel) take the same route: each
     op renders, fuses, cleans and compacts shard by shard and combines on
@@ -823,59 +892,28 @@ def _fuse_clean_all(
     JAX package's P(None, "d"), so those shards do the object slots' work
     and the others idle through it."""
     M = int(new_pose.shape[0])
-    H, W = cam.height, cam.width
     dev = depth.device
-    time_delta = fparams["time_delta"]
-    A = stores.capacity
-    A_obj = min(cfg.object_active_capacity, A)
-    if M > 1 or global_may_idle:
-        empty_blk = sm.empty_store(cfg.expel_block, dev)
-        empty_imap = _empty_imap(H, W, dev)
-
-    counts, blks, imaps = [], [], []
+    tick_t = torch.full((), float(tick), dtype=torch.float32, device=dev)
+    statics = dict(cam=cam, cfg=cfg, time_delta=fparams["time_delta"],
+                   outlier_coeff=fparams["outlier_coeff"])
+    blks, imaps = [], []
     for m in range(M):
         with sw.section(f"step.fuse_clean.slot{m}"):
-            cap = A if m == 0 else A_obj
-            count = stores.count[m] if m == 0 else torch.clamp(stores.count[m], max=cap)
-            store = _slot_store(stores, m, cap, count)
-            pose = new_pose[m]
-            max_d = model_max_depth[m] if M > 1 else fparams["depth_cutoff"]
-            fs = fu.make_frame_surfels(depth, filtered, rgb, cam, weight[m], max_d)
-            mask_ok = (
-                torch.ones(cam.shape, dtype=torch.bool, device=dev) if mask is None
-                else mask == model_ids[m]
+            may_idle = m > 0 or global_may_idle
+            x = SlotInputs(
+                pose=new_pose[m], weight=weight[m],
+                model_id=None if mask is None else model_ids[m],
+                conf_threshold=conf_thresholds[m], on=active_fuse[m] if may_idle else None,
+                max_depth=model_max_depth[m] if M > 1 else fparams["depth_cutoff"],
+                depth=depth, filtered=filtered, rgb=rgb, mask=mask, tick=tick_t,
             )
-            imap = rz.predict_indices(store, pose, cam, tick, time_delta, max_d)
-            fused, aux = fu.fuse(
-                store, fs, depth, imap, mask_ok, pose, cam, cfg, tick, max_d, return_aux=True
-            )
-            imap2 = fu.overlay_imap(fused, imap, aux, fs, pose, cam, tick)
-            cleaned, keep = fu.clean_eval(
-                fused, imap2, filtered, pose, cam, tick, time_delta,
-                conf_thresholds[m], fparams["outlier_coeff"],
-                mask=mask, mask_id=model_ids[m],
-            )
-            # age-out migration: surfels past the window move to the stable tier
-            aged = sm.per_shard(
-                cleaned,
-                lambda s: (s.last_time > 0) & ((float(tick) - s.last_time) > float(time_delta)),
-            )
-            out, blk = sm.expel_split(cleaned, keep, aged, cfg.expel_block)
-            if m > 0 or global_may_idle:
-                on = active_fuse[m]
-                out = sm.select(on, out, store)
-                blk = _select(on, blk, empty_blk)
-                imap2 = _select(on, imap2, empty_imap)
-            if M > 1:
-                _write_slot(stores, m, out)
-            counts.append(out.count)
+            if graphs is None:
+                blk, imap2 = _fuse_clean_slot(stores, m, x, phase=tick % 2, **statics)
+            else:
+                blk, imap2 = graphs.run(stores, m, x, statics, tick % 2)
             blks.append(blk)
             imaps.append(imap2)
-    if M > 1:
-        new_stores = stores._replace(count=torch.stack(counts))
-    else:
-        new_stores = _with_model_axis(out)
-    return new_stores, _append_expel_blocks(stables, _stack(blks), cfg), _stack(imaps)
+    return stores, _append_expel_blocks(stables, _stack(blks), cfg), _stack(imaps)
 
 
 def _append_expel_blocks(stables, blks: SurfelStore, cfg):
@@ -924,6 +962,130 @@ def _append_expel_blocks(stables, blks: SurfelStore, cfg):
                 leaf.index_copy_(0, at, rows)
         counts.append(torch.where(write, base + n_ex, cursor).to(torch.int32))
     return stables._replace(count=torch.stack(counts))
+
+
+# ---------------------------------------------------------------------------
+# each slot's fuse/clean pass as a CUDA graph
+
+
+def fuse_graph_key(stores, m: int, leaves: list, spec, statics: dict) -> tuple:
+    """What a captured slot pass bakes in, but the stagger phase: the
+    device, the slot, the inputs' structure (`spec`, None fields
+    included), every input tensor's shape, dtype and strides and every other
+    input's value (the depth cutoff at one slot), `statics` (`cam`, `cfg`,
+    `time_delta`, `outlier_coeff`), and the address, shape, dtype and
+    strides of every leaf of the stacked stores, which the pass reads and
+    writes in place."""
+    def sig(t):
+        return (tuple(t.shape), t.dtype, t.stride()) if isinstance(t, torch.Tensor) else t
+
+    return (stores.count.device, m, spec, tuple(sig(t) for t in leaves),
+            tuple(sorted(statics.items())),
+            tuple((t.data_ptr(),) + sig(t) for t in stores))
+
+
+class _SlotGraph:
+    """One captured slot pass: its own copy of every input tensor, which a
+    replay fills, and output buffers (the expel block and the index render,
+    allocated outside the graphs' pool) that the graph writes last; the
+    other stagger phase's graph of the same family (`sibling`) lends both,
+    as the two never replay in one frame."""
+
+    def __init__(self, stores, m: int, leaves: list, spec, statics: dict, phase: int, pool, side,
+                 sibling=None):
+        dev = stores.count.device
+        cam, cfg = statics["cam"], statics["cfg"]
+        with torch.cuda.device(dev):
+            if sibling is not None:
+                self.leaves, self.outputs = sibling.leaves, sibling.outputs
+            else:
+                self.leaves = [t.clone() if isinstance(t, torch.Tensor) else t for t in leaves]
+                self.outputs = (sm.empty_store(cfg.expel_block, dev),
+                                _empty_imap(cam.height, cam.width, dev))
+            self.graph = torch.cuda.CUDAGraph()
+            # as `odometry._SolveGraph`: a side stream, no device sync,
+            # thread-local capture
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    res = _fuse_clean_slot(stores, m, pytree.tree_unflatten(self.leaves, spec),
+                                           phase=phase, **statics)
+                    for dst, src in zip(pytree.tree_leaves(self.outputs), pytree.tree_leaves(res)):
+                        dst.copy_(src)
+                finally:
+                    self.graph.capture_end()
+
+    def replay(self, leaves: list):
+        for dst, src in zip(self.leaves, leaves):
+            if isinstance(dst, torch.Tensor):
+                dst.copy_(src)
+        self.graph.replay()
+        # the next replay overwrites them: the caller reads them within the frame
+        return self.outputs
+
+
+class FuseGraphs:
+    """`_fuse_clean_slot` as CUDA graphs, one per family (`fuse_graph_key`:
+    a slot and its settings) and stagger phase (the tick's parity, which
+    picks a strided sub-grid); each engine holds its own.  A family's
+    first call runs eagerly: it creates the libraries' handles and
+    workspaces, which a capture may not.  Its first call in each phase after
+    that captures that phase's graph on a side stream and replays it; every
+    later call copies its input tensors into the graph's and replays.  The
+    slots' graphs share one private memory pool, captured on one side
+    stream (the allocator reuses a freed block only on the stream it was
+    allocated on): they replay one after another, and each writes its
+    outputs into buffers of its own outside the pool, so nothing a replay
+    leaves in the pool is read after it.  At most 2 x `slots` families are
+    held, the least recently used evicted.  CPU calls and sharded stores
+    run eagerly.  `counts()` reads host counters only."""
+
+    def __init__(self, slots: int):
+        self.held = 2 * slots
+        self._families: OrderedDict = OrderedDict()  # key -> {phase: _SlotGraph}
+        self._pool = self._stream = None
+        self._counts = dict(captures=0, replays=0, eager=0, evictions=0)
+
+    def counts(self) -> dict[str, int]:
+        return dict(self._counts)
+
+    def run(self, stores, m: int, x: SlotInputs, statics: dict, phase: int):
+        if x.depth.device.type != "cuda" or isinstance(stores, sm.ShardedStore):
+            self._counts["eager"] += 1
+            return _fuse_clean_slot(stores, m, x, phase=phase, **statics)
+        leaves, spec = pytree.tree_flatten(x)
+        graphs = self.admit(fuse_graph_key(stores, m, leaves, spec, statics))
+        if graphs is None:
+            self._counts["eager"] += 1
+            return _fuse_clean_slot(stores, m, x, phase=phase, **statics)
+        g = graphs.get(phase)
+        if g is None:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(x.depth.device)
+            if not any(self._families.values()):
+                # no graph holds the pool (the last ones were evicted): the
+                # allocator releases a pool with no graph, so take a new one
+                self._pool = torch.cuda.graph_pool_handle()
+            g = graphs[phase] = _SlotGraph(stores, m, leaves, spec, statics, phase, self._pool,
+                                           self._stream, graphs.get(1 - phase))
+            self._counts["captures"] += 1
+        self._counts["replays"] += 1
+        return g.replay(leaves)
+
+    def admit(self, key) -> dict | None:
+        """The family's graphs by phase, made the most recent; None for a
+        new family, entered here as the most recent, evicting the least
+        recent past `held`."""
+        graphs = self._families.get(key)
+        if graphs is not None:
+            self._families.move_to_end(key)
+            return graphs
+        self._families[key] = {}
+        if len(self._families) > self.held:
+            self._families.popitem(last=False)
+            self._counts["evictions"] += 1
+        return None
 
 
 # ---------------------------------------------------------------------------
@@ -992,6 +1154,7 @@ class CoFusion:
         self.keep_models = keep_models
         self.sw = Stopwatch()
         self.track_graphs = od.TrackGraphs()
+        self.fuse_graphs = FuseGraphs(cfg.max_models)
         self.state: EngineState | None = None
         self._timestamps: list[int] = []
         self._flushed_poses: list[np.ndarray] = []
@@ -1256,6 +1419,7 @@ class CoFusion:
                 sparams=sparams, use_crf=use_crf,
                 use_reloc=self.enable_relocalization, close_loops=self.close_loops,
                 use_gt_pose=gt_pose is not None, sw=self.sw, graphs=self.track_graphs,
+                fuse_graphs=self.fuse_graphs,
             )
             self._last_outputs = outputs
             self._timestamps.append(ts)
@@ -1361,13 +1525,15 @@ class CoFusion:
 
     def stats(self) -> dict:
         """Materialise the most recent frame's outputs (blocks on the device).
-        `tracking_graph`: this engine's `track_models` graph counters (host
-        ints: captures, replays, eager calls, evictions)."""
+        `tracking_graph` and `fuse_graph`: this engine's `track_models` and
+        fuse/clean graph counters (host ints: captures, replays, eager calls,
+        evictions)."""
         with self.sw.section("download"):
             models = self.state.models
             st = {
                 "tick": self.state.tick,
                 "tracking_graph": self.track_graphs.counts(),
+                "fuse_graph": self.fuse_graphs.counts(),
                 "poses": models.pose.cpu().numpy(),
                 "surfel_counts": (
                     models.store.count

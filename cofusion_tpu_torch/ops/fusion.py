@@ -10,6 +10,13 @@ a different order on every run; new surfels are appended contiguously after
 a stable argsort.  Device-valued offsets (the append cursor) become index
 arithmetic (`count + arange`), never a host read.
 
+The tick (`time`) is a Python number or a 0-d float32 tensor on the
+frame's device (the engine's fuse/clean pass hands it the latter, so a
+captured pass reads it from memory); an integer tick is exact in float32,
+so both give the same bits.  The stagger phase `time % 2` picks a strided
+sub-grid, so `fuse` takes it as a Python int (`phase`) beside a tensor
+tick.
+
 A sharded store (models.surfel_model.ShardedStore) fuses and cleans with
 the image-side work done once, on the count's device, and the per-surfel
 work shard by shard on the shards' devices: every surfel compares the index
@@ -53,6 +60,19 @@ class FuseAux(NamedTuple):
     dest: torch.Tensor   # stagger-subgrid flat int64 append row (>= count = dropped)
     count: torch.Tensor  # () post-append count
     phase: int           # stagger phase (time % 2)
+
+
+def _tick(time):
+    """The tick as the passes compare and write it: a 0-d tensor as it is,
+    a Python number as a float."""
+    return time if isinstance(time, torch.Tensor) else float(time)
+
+
+def _tick_rows(time, n: int, device) -> torch.Tensor:
+    """(n,) float32 rows holding the tick."""
+    if isinstance(time, torch.Tensor):
+        return time.expand(n)
+    return torch.full((n,), float(time), dtype=torch.float32, device=device)
 
 
 def _get_vertex(depth, cam: CameraConfig):
@@ -136,9 +156,10 @@ def fuse(
     pose: torch.Tensor,
     cam: CameraConfig,
     cfg: CoFusionConfig,
-    time: int,
+    time,
     max_depth,
     return_aux: bool = False,
+    phase: int | None = None,
 ):
     """One fuse step: associate each (stagger-decimated) input pixel with a map
     surfel via the index render, merge matched measurements
@@ -147,12 +168,13 @@ def fuse(
     CONTRACT (as in the reference): `imap` is `predict_indices(store, pose)`
     of THIS store at THIS pose — a surfel claims a pixel's accumulated
     updates iff the render's index at its own pixel is itself.  `store` may
-    be sharded; `imap` is then the combined render."""
+    be sharded; `imap` is then the combined render.  `phase` is the
+    stagger phase `time % 2`, required where `time` is a tensor."""
     H, W = raw_depth.shape
     dev = raw_depth.device
     x = torch.arange(W, device=dev)[None, :]
     y = torch.arange(H, device=dev)[:, None]
-    p = time % 2
+    p = time % 2 if phase is None else phase
     stagger = ((x % 2) == p) & ((y % 2) == p)  # data.vert:116
     z = frame.pos[..., 2]
     cand = (
@@ -257,7 +279,7 @@ def fuse(
         "radius": frame.radius, "conf": frame.conf,
     }
     rows = {f: sub(v).index_select(0, order) for f, v in w_cols.items()}
-    tf_rows = torch.full((P,), float(time), dtype=torch.float32, device=dev)
+    tf_rows = _tick_rows(time, P, dev)
     rows["init_time"] = tf_rows
     rows["last_time"] = tf_rows
     at = count + torch.arange(P, device=dev)
@@ -273,7 +295,7 @@ def fuse(
     for sh, off in zip(shards, offsets):
         n_k, dk = sh.capacity, sh.px.device
         updated = _merge(sh, off, sm.to_device(acc_flat, dk), sm.to_device(index_flat, dk),
-                         sm.to_device(pose, dk), cam, time)
+                         sm.to_device(pose, dk), cam, sm.to_device(time, dk))
         at_k = sm.to_device(at, dk)
         if sharded:
             at_k = torch.where((at_k >= off) & (at_k < off + n_k), at_k - off,
@@ -338,7 +360,7 @@ def _merge(store: SurfelStore, off: int, acc_flat, index_flat, pose, cam: Camera
     nz_u = torch.where(n_ok, nz_u / nls, store.nz)
     rad_u = torch.where(grow_ok, (c_k * store.radius + sums["radius"]) / denom, store.radius)
 
-    tf = float(time)
+    tf = _tick(time)
     return store._replace(
         px=px_u, py=py_u, pz=pz_u, nx=nx_u, ny=ny_u, nz=nz_u,
         cr=cr_u, cg=cg_u, cb=cb_u, radius=rad_u,
@@ -358,7 +380,7 @@ def overlay_imap(
     frame: FrameSurfels,
     pose: torch.Tensor,
     cam: CameraConfig,
-    time: int,
+    time,
 ) -> IndexMap:
     """Index render of the POST-fuse map from the pre-fuse render + the fuse
     result, without a second z-buffer pass: merged surfels keep their pixel
@@ -396,7 +418,7 @@ def overlay_imap(
     app_z = frame.pos[..., 2]
     app_win = app & (~has | (app_z < lz))
 
-    tf = float(time)
+    tf = _tick(time)
 
     def ch(winner, appended):
         return torch.where(app_win, appended, torch.where(has, winner, 0.0))
@@ -432,7 +454,7 @@ def clean_eval(
     depth_input: torch.Tensor,
     pose: torch.Tensor,
     cam: CameraConfig,
-    time: int,
+    time,
     time_delta,
     conf_threshold,
     outlier_coeff,
@@ -474,8 +496,8 @@ def clean_eval(
     for sh in store.shards:
         dk = sh.px.device
         out, keep = _clean_surfels(
-            sh, [sm.to_device(t, dk) for t in tables], sm.to_device(pose, dk), cam, time,
-            time_delta, sm.to_device(conf_threshold, dk), outlier_coeff,
+            sh, [sm.to_device(t, dk) for t in tables], sm.to_device(pose, dk), cam,
+            sm.to_device(time, dk), time_delta, sm.to_device(conf_threshold, dk), outlier_coeff,
             sm.to_device(mask, dk), sm.to_device(mask_id, dk),
         )
         outs.append(out)
@@ -558,7 +580,7 @@ def _clean_surfels(store: SurfelStore, tables, pose, cam: CameraConfig, time, ti
     return store._replace(conf=conf), keep
 
 
-def initialise(frame: FrameSurfels, pose: torch.Tensor, capacity: int, time: int) -> SurfelStore:
+def initialise(frame: FrameSurfels, pose: torch.Tensor, capacity: int, time) -> SurfelStore:
     """First-frame map initialisation (Model::initialise, Model.cpp:227-272):
     every valid pixel becomes a surfel."""
     H, W = frame.valid.shape
@@ -566,7 +588,7 @@ def initialise(frame: FrameSurfels, pose: torch.Tensor, capacity: int, time: int
     R, t = pose[:3, :3], pose[:3, 3]
     wpos = _rotate(R, frame.pos) + t
     wnorm = _rotate(R, frame.normal)
-    tf = torch.full((H * W,), float(time), dtype=torch.float32, device=dev)
+    tf = _tick_rows(time, H * W, dev)
     flat = sm.pack_store(
         pos=wpos.reshape(-1, 3),
         normal=wnorm.reshape(-1, 3),

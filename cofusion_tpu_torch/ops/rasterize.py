@@ -202,7 +202,8 @@ def predict_indices(
     """Z-buffered 1x point render of the surfel map into the camera at `pose`.
     Gates: 0 < z <= max_depth and time - last_time <= time_delta
     (index_map.vert:45-50; > time_delta with `active_window` off);
-    `conf_threshold` adds splat.vert:58's gate.
+    `conf_threshold` adds splat.vert:58's gate.  `time` is the tick, a
+    Python number or a 0-d tensor.
 
     A sharded store renders shard by shard on the shards' devices, each
     keying its surfels by global row; the key buffers combine by minimum
@@ -216,7 +217,7 @@ def predict_indices(
         dk = sh.px.device
         lx, ly, lz, lnx, lny, lnz, ui, vi, inb = _project_store(sh, sm.to_device(pose, dk), cam)
         ok = sh.valid & (lz > 0) & (lz <= sm.to_device(max_depth, dk)) & inb
-        ok = ok & _window_gate(sh, time, time_delta, active_window)
+        ok = ok & _window_gate(sh, sm.to_device(time, dk), time_delta, active_window)
         if conf_threshold is not None:
             ok = ok & (sh.conf >= sm.to_device(conf_threshold, dk))
         lin = torch.where(ok, vi * W + ui, H * W)
