@@ -319,8 +319,8 @@ def run(argv: list[str] | None = None) -> int:
         ckpt.save_engine(engine, opt["checkpoint"])
         print(f"Checkpoint saved to {opt['checkpoint']}.")
     print(f"Processed {processed} frames.")
-    print(sw.report({"tracking_graph": engine.track_graphs.counts(),
-                     "fuse_graph": engine.fuse_graphs.counts()}))
+    print(sw.report({"tracking_graph": engine.graphs.counts("tracking"),
+                     "fuse_graph": engine.graphs.counts("fuse_clean")}))
     return 0
 
 

@@ -11,16 +11,16 @@ exports (`render_views`).
 One frame (`_step`): bilateral filter (CUDA kernel) -> intensity -> FillIn
 of the carried prediction -> frame/model pyramids -> masked batched tracking
 of all M model slots (SO(3) pre-align, 3-level ICP+RGB Gauss-Newton; on
-the card one CUDA graph replay from the engine's own `track_graphs`, keyed
-on the shapes and settings it bakes in, eager on the CPU: ops/odometry.py) ->
+the card one CUDA graph replay from the engine's own graph cache `graphs`,
+keyed on the shapes and settings it bakes in, eager on the CPU: graphs.py) ->
 segmentation and the model lifecycle (spawn, unseen deactivation, smart
 delete, slot recycling) -> with '-rl', lost detection, fern keyframing and
 recovery -> with '-cl', the global model's local loop (three window
 splats: the active view and both tiers' inactive views) and the
 deformation of its map and pose log -> per-slot fuse/clean (z-buffer
 render, fuse, overlay, clean, expel into the stable tier; on the card one
-CUDA graph replay a slot from the engine's own `fuse_graphs`, which read
-and write the stacked active tier in place) -> window splat (CUDA kernel)
+CUDA graph replay a slot from the same cache, reading and writing the
+stacked active tier in place) -> window splat (CUDA kernel)
 of the next frame's prediction over all slots at once.  Frame 1 takes
 `_init_state`.
 
@@ -58,17 +58,17 @@ it, written each frame, so a captured pass reads the frame's tick.
 from __future__ import annotations
 
 import dataclasses
-from collections import OrderedDict
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.utils._pytree as pytree
 
 from cofusion_tpu_torch.config import (
     CameraConfig, CoFusionConfig, FusionParams, SegmentationParams, TrackingParams,
 )
 from cofusion_tpu_torch.device import resolve_device, upload
+from cofusion_tpu_torch.graphs import StepGraphs
 from cofusion_tpu_torch.models import surfel_model as sm
 from cofusion_tpu_torch.models.surfel_model import SurfelStore
 from cofusion_tpu_torch.ops import deformation as df
@@ -389,7 +389,6 @@ def _step(
     use_gt_pose: bool = False,
     sw=NO_SECTIONS,
     graphs=None,
-    fuse_graphs=None,
 ):
     """One frame (CoFusion::processFrame).
 
@@ -405,9 +404,8 @@ def _step(
     slot-id `mask`.  `use_gt_pose` ('-p') takes `_step_gt_pose` with the
     (4, 4) device pose `fparams["gt_pose"]`.  `sw` (the engine's
     Stopwatch) times the step's stages as `step.*` sections; `graphs` (the
-    engine's `odometry.TrackGraphs`) replays every tracking solve of the step
-    as a CUDA graph on a CUDA device, and `fuse_graphs` (its `FuseGraphs`)
-    each slot's fuse/clean pass.
+    engine's `graphs.StepGraphs`) replays every tracking solve of the step
+    and each slot's fuse/clean pass as a CUDA graph on a CUDA device.
 
     The step consumes its input state: the stores, the stable tier and the
     pose and mask rings are updated in place (the JAX engine donates its
@@ -443,7 +441,7 @@ def _step(
             pred_image = _with_global(filled.image, splat.image[1:])
     if use_gt_pose:
         return _step_gt_pose(state, rgb, depth, mask, filtered, intensity, fparams,
-                             cam=cam, cfg=cfg, tick=tick, sw=sw, fuse_graphs=fuse_graphs)
+                             cam=cam, cfg=cfg, tick=tick, sw=sw, graphs=graphs)
 
     with sw.section("step.tracking"):
         # --- tracking pyramids: one shared frame pyramid, per-model mask gates
@@ -628,7 +626,7 @@ def _step(
         new_stores, new_stables, imap_b = _fuse_clean_all(
             models_store, models_stable, new_pose, weight, models.model_id, models.conf_threshold,
             active_fuse, model_max_depth, depth, filtered, rgb, mask if multi else None,
-            cam, cfg, tick, fparams, global_may_idle=use_reloc, sw=sw, graphs=fuse_graphs,
+            cam, cfg, tick, fparams, global_may_idle=use_reloc, sw=sw, graphs=graphs,
         )
     # the next frame's prediction: one batched window splat over the
     # post-fuse renders, confidence-gated per model (splat.vert:58)
@@ -690,7 +688,7 @@ def _so3_ref(intensity: torch.Tensor, cfg: CoFusionConfig) -> torch.Tensor:
 
 def _step_gt_pose(state: EngineState, rgb, depth, mask, filtered, intensity, fparams, *,
                   cam: CameraConfig, cfg: CoFusionConfig, tick: int, sw=NO_SECTIONS,
-                  fuse_graphs=None):
+                  graphs=None):
     """'-p' ground-truth pose frame (CoFusion.cpp:340-343): tracking,
     segmentation, relocalisation and loop closure are skipped; the global
     pose is the given one and every active model fuses and cleans at its
@@ -707,7 +705,7 @@ def _step_gt_pose(state: EngineState, rgb, depth, mask, filtered, intensity, fpa
         new_stores, new_stables, _ = _fuse_clean_all(
             models.store, models.stable, new_pose, weight, models.model_id, models.conf_threshold,
             models.active, model_max_depth, depth, filtered, rgb, mask if M > 1 else None,
-            cam, cfg, tick, fparams, sw=sw, graphs=fuse_graphs,
+            cam, cfg, tick, fparams, sw=sw, graphs=graphs,
         )
     new_models = models._replace(
         store=new_stores,
@@ -882,8 +880,10 @@ def _fuse_clean_all(
     unless `global_may_idle` (relocalisation: fusion pauses while lost).
     `weight` is a list of per-slot 0-d weights.  The pass reads the tick as
     a 0-d float32 tensor on `depth`'s device.  `sw` times each slot's pass
-    as `step.fuse_clean.slot<m>`; `graphs` (the engine's `FuseGraphs`)
-    replays each slot's pass as a CUDA graph on a CUDA device.
+    as `step.fuse_clean.slot<m>`; `graphs` (the engine's graph cache)
+    replays each slot's pass as a CUDA graph on a CUDA device, one family
+    per slot and settings with the stagger phase as its variant, reading
+    and writing `stores` in place; a sharded store's passes run eagerly.
 
     Sharded stores (cofusion_tpu_torch/parallel) take the same route: each
     op renders, fuses, cleans and compacts shard by shard and combines on
@@ -896,6 +896,7 @@ def _fuse_clean_all(
     tick_t = torch.full((), float(tick), dtype=torch.float32, device=dev)
     statics = dict(cam=cam, cfg=cfg, time_delta=fparams["time_delta"],
                    outlier_coeff=fparams["outlier_coeff"])
+    sharded = isinstance(stores, sm.ShardedStore)
     blks, imaps = [], []
     for m in range(M):
         with sw.section(f"step.fuse_clean.slot{m}"):
@@ -907,10 +908,13 @@ def _fuse_clean_all(
                 max_depth=model_max_depth[m] if M > 1 else fparams["depth_cutoff"],
                 depth=depth, filtered=filtered, rgb=rgb, mask=mask, tick=tick_t,
             )
+            slot_pass = functools.partial(_fuse_clean_slot, stores, m, phase=tick % 2, **statics)
             if graphs is None:
-                blk, imap2 = _fuse_clean_slot(stores, m, x, phase=tick % 2, **statics)
+                blk, imap2 = slot_pass(x)
             else:
-                blk, imap2 = graphs.run(stores, m, x, statics, tick % 2)
+                # the outputs are consumed within the frame: not cloned
+                blk, imap2 = graphs.run("fuse_clean", slot_pass, x, (m, *statics.items()),
+                                        in_place=stores, variant=tick % 2, capture=not sharded)
             blks.append(blk)
             imaps.append(imap2)
     return stores, _append_expel_blocks(stables, _stack(blks), cfg), _stack(imaps)
@@ -962,130 +966,6 @@ def _append_expel_blocks(stables, blks: SurfelStore, cfg):
                 leaf.index_copy_(0, at, rows)
         counts.append(torch.where(write, base + n_ex, cursor).to(torch.int32))
     return stables._replace(count=torch.stack(counts))
-
-
-# ---------------------------------------------------------------------------
-# each slot's fuse/clean pass as a CUDA graph
-
-
-def fuse_graph_key(stores, m: int, leaves: list, spec, statics: dict) -> tuple:
-    """What a captured slot pass bakes in, but the stagger phase: the
-    device, the slot, the inputs' structure (`spec`, None fields
-    included), every input tensor's shape, dtype and strides and every other
-    input's value (the depth cutoff at one slot), `statics` (`cam`, `cfg`,
-    `time_delta`, `outlier_coeff`), and the address, shape, dtype and
-    strides of every leaf of the stacked stores, which the pass reads and
-    writes in place."""
-    def sig(t):
-        return (tuple(t.shape), t.dtype, t.stride()) if isinstance(t, torch.Tensor) else t
-
-    return (stores.count.device, m, spec, tuple(sig(t) for t in leaves),
-            tuple(sorted(statics.items())),
-            tuple((t.data_ptr(),) + sig(t) for t in stores))
-
-
-class _SlotGraph:
-    """One captured slot pass: its own copy of every input tensor, which a
-    replay fills, and output buffers (the expel block and the index render,
-    allocated outside the graphs' pool) that the graph writes last; the
-    other stagger phase's graph of the same family (`sibling`) lends both,
-    as the two never replay in one frame."""
-
-    def __init__(self, stores, m: int, leaves: list, spec, statics: dict, phase: int, pool, side,
-                 sibling=None):
-        dev = stores.count.device
-        cam, cfg = statics["cam"], statics["cfg"]
-        with torch.cuda.device(dev):
-            if sibling is not None:
-                self.leaves, self.outputs = sibling.leaves, sibling.outputs
-            else:
-                self.leaves = [t.clone() if isinstance(t, torch.Tensor) else t for t in leaves]
-                self.outputs = (sm.empty_store(cfg.expel_block, dev),
-                                _empty_imap(cam.height, cam.width, dev))
-            self.graph = torch.cuda.CUDAGraph()
-            # as `odometry._SolveGraph`: a side stream, no device sync,
-            # thread-local capture
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-                try:
-                    res = _fuse_clean_slot(stores, m, pytree.tree_unflatten(self.leaves, spec),
-                                           phase=phase, **statics)
-                    for dst, src in zip(pytree.tree_leaves(self.outputs), pytree.tree_leaves(res)):
-                        dst.copy_(src)
-                finally:
-                    self.graph.capture_end()
-
-    def replay(self, leaves: list):
-        for dst, src in zip(self.leaves, leaves):
-            if isinstance(dst, torch.Tensor):
-                dst.copy_(src)
-        self.graph.replay()
-        # the next replay overwrites them: the caller reads them within the frame
-        return self.outputs
-
-
-class FuseGraphs:
-    """`_fuse_clean_slot` as CUDA graphs, one per family (`fuse_graph_key`:
-    a slot and its settings) and stagger phase (the tick's parity, which
-    picks a strided sub-grid); each engine holds its own.  A family's
-    first call runs eagerly: it creates the libraries' handles and
-    workspaces, which a capture may not.  Its first call in each phase after
-    that captures that phase's graph on a side stream and replays it; every
-    later call copies its input tensors into the graph's and replays.  The
-    slots' graphs share one private memory pool, captured on one side
-    stream (the allocator reuses a freed block only on the stream it was
-    allocated on): they replay one after another, and each writes its
-    outputs into buffers of its own outside the pool, so nothing a replay
-    leaves in the pool is read after it.  At most 2 x `slots` families are
-    held, the least recently used evicted.  CPU calls and sharded stores
-    run eagerly.  `counts()` reads host counters only."""
-
-    def __init__(self, slots: int):
-        self.held = 2 * slots
-        self._families: OrderedDict = OrderedDict()  # key -> {phase: _SlotGraph}
-        self._pool = self._stream = None
-        self._counts = dict(captures=0, replays=0, eager=0, evictions=0)
-
-    def counts(self) -> dict[str, int]:
-        return dict(self._counts)
-
-    def run(self, stores, m: int, x: SlotInputs, statics: dict, phase: int):
-        if x.depth.device.type != "cuda" or isinstance(stores, sm.ShardedStore):
-            self._counts["eager"] += 1
-            return _fuse_clean_slot(stores, m, x, phase=phase, **statics)
-        leaves, spec = pytree.tree_flatten(x)
-        graphs = self.admit(fuse_graph_key(stores, m, leaves, spec, statics))
-        if graphs is None:
-            self._counts["eager"] += 1
-            return _fuse_clean_slot(stores, m, x, phase=phase, **statics)
-        g = graphs.get(phase)
-        if g is None:
-            if self._stream is None:
-                self._stream = torch.cuda.Stream(x.depth.device)
-            if not any(self._families.values()):
-                # no graph holds the pool (the last ones were evicted): the
-                # allocator releases a pool with no graph, so take a new one
-                self._pool = torch.cuda.graph_pool_handle()
-            g = graphs[phase] = _SlotGraph(stores, m, leaves, spec, statics, phase, self._pool,
-                                           self._stream, graphs.get(1 - phase))
-            self._counts["captures"] += 1
-        self._counts["replays"] += 1
-        return g.replay(leaves)
-
-    def admit(self, key) -> dict | None:
-        """The family's graphs by phase, made the most recent; None for a
-        new family, entered here as the most recent, evicting the least
-        recent past `held`."""
-        graphs = self._families.get(key)
-        if graphs is not None:
-            self._families.move_to_end(key)
-            return graphs
-        self._families[key] = {}
-        if len(self._families) > self.held:
-            self._families.popitem(last=False)
-            self._counts["evictions"] += 1
-        return None
 
 
 # ---------------------------------------------------------------------------
@@ -1153,8 +1033,7 @@ class CoFusion:
         # smart delete keeps only mature ones (CoFusion.cpp:612-626)
         self.keep_models = keep_models
         self.sw = Stopwatch()
-        self.track_graphs = od.TrackGraphs()
-        self.fuse_graphs = FuseGraphs(cfg.max_models)
+        self.graphs = StepGraphs(cfg.max_models)
         self.state: EngineState | None = None
         self._timestamps: list[int] = []
         self._flushed_poses: list[np.ndarray] = []
@@ -1418,8 +1297,7 @@ class CoFusion:
                 cam=self.cam, cfg=self.cfg, tparams=self.tracking,
                 sparams=sparams, use_crf=use_crf,
                 use_reloc=self.enable_relocalization, close_loops=self.close_loops,
-                use_gt_pose=gt_pose is not None, sw=self.sw, graphs=self.track_graphs,
-                fuse_graphs=self.fuse_graphs,
+                use_gt_pose=gt_pose is not None, sw=self.sw, graphs=self.graphs,
             )
             self._last_outputs = outputs
             self._timestamps.append(ts)
@@ -1525,15 +1403,15 @@ class CoFusion:
 
     def stats(self) -> dict:
         """Materialise the most recent frame's outputs (blocks on the device).
-        `tracking_graph` and `fuse_graph`: this engine's `track_models` and
-        fuse/clean graph counters (host ints: captures, replays, eager calls,
-        evictions)."""
+        `tracking_graph` and `fuse_graph`: this engine's graph cache's
+        counters of `track_models` and the fuse/clean passes (host ints:
+        captures, replays, eager calls, evictions)."""
         with self.sw.section("download"):
             models = self.state.models
             st = {
                 "tick": self.state.tick,
-                "tracking_graph": self.track_graphs.counts(),
-                "fuse_graph": self.fuse_graphs.counts(),
+                "tracking_graph": self.graphs.counts("tracking"),
+                "fuse_graph": self.graphs.counts("fuse_clean"),
                 "poses": models.pose.cpu().numpy(),
                 "surfel_counts": (
                     models.store.count

@@ -63,7 +63,7 @@ def local_loop(
     calls predict() right before this block, CoFusion.cpp:347), `old` the
     INACTIVE one.  `time`, `time_delta` and `conf_threshold` are the
     renders' (the caller's), kept for the JAX signature.  `graphs`: the
-    engine's `odometry.TrackGraphs`, for the solve."""
+    engine's graph cache (graphs.py), for the solve."""
     # no GN stride: the gates are absolute, calibrated for full-resolution
     # correspondence counts
     loop_cfg = cfg.replace(use_so3=False, gn_stride_l0=1)

@@ -1,14 +1,14 @@
-"""Each slot's fuse/clean pass as a CUDA graph (`engine.FuseGraphs`).
+"""Each slot's fuse/clean pass as a CUDA graph (the `fuse_clean` stage of
+`graphs.StepGraphs`; what the cache does for every stage is in
+test_torch_graphs.py).
 
-On the CPU: calls through an engine's cache, and calls on a sharded
-store, run eagerly and count as such; the pass gives the same bits with
-the tick as a 0-d float32 tensor as with the Python tick, in both stagger
-phases and on an object slot's idle select; the cache key tells apart
-every setting a captured pass reads, the inputs' structure and sizes and
-the address of every store leaf it reads in place, and matches equal
-settings built afresh; the least recently used family is evicted past the
-bound; a step keeps the addresses of the active tier's leaves (the slots
-reset and `-cl`'s slot 0 written back in place).
+On the CPU: the pass gives the same bits with the tick as a 0-d float32
+tensor as with the Python tick, in both stagger phases and on an object
+slot's idle select; the cache key tells apart every setting a captured
+pass reads, the inputs' structure and sizes and the address of every store
+leaf it reads in place, and matches equal settings built afresh; a step
+keeps the addresses of the active tier's leaves (the slots reset and
+`-cl`'s slot 0 written back in place).
 
 On the card only (skipped here; the fixture decides, so every machine
 collects the same tests), at 640x480: an engine whose slots replay their
@@ -17,8 +17,7 @@ leaf of the state after every frame, for the static mode (one slot), four
 slots with GT masks across a spawn, a wipe and a respawn (the idle select
 flips both ways) and `-cl` at one slot; the graphed engine's counters; a
 downloaded map unchanged by the next replays; a new outlier coefficient
-captured anew; a capture after every graph was evicted; a sharded state's
-passes eager.  This file imports no JAX,
+captured anew; a sharded state's passes eager.  This file imports no JAX,
 so on the card it runs without the suite's conftest:
 
     python3 -m pytest -q --noconftest tests/test_torch_graphed_fuse.py
@@ -32,11 +31,13 @@ import torch
 import torch.utils._pytree as pytree
 
 from cofusion_tpu_torch import engine as te
+from cofusion_tpu_torch import graphs
 from cofusion_tpu_torch.config import CameraConfig, CoFusionConfig, FusionParams
-from cofusion_tpu_torch.engine import CoFusion, FuseGraphs, SlotInputs
+from cofusion_tpu_torch.engine import CoFusion, SlotInputs
 from cofusion_tpu_torch.io.synthetic import make_multi_object_frames, make_sequence
 from cofusion_tpu_torch.models import surfel_model as sm
 from cofusion_tpu_torch.parallel import make_mesh, shard_engine_state
+from torch_graphs_shared import card, diff, pair  # noqa: F401  (card: a fixture)
 
 TINY = CameraConfig(width=64, height=48, fx=52.8, fy=52.8, cx=32.0, cy=24.0)
 
@@ -67,19 +68,6 @@ def _gt_frames(cam: CameraConfig, n: int, hide: tuple = (), hidden_id: int = 3):
 
 # ---------------------------------------------------------------------------
 # on the CPU
-
-
-@pytest.mark.parametrize("layout", ["cpu", "sharded"])
-def test_cpu_and_sharded_calls_run_eager(layout):
-    frames, _, _ = make_sequence(TINY, 3, kind="orbit")
-    eng = CoFusion(_tiny_cfg(1), fusion_params=FusionParams(depth_cutoff=4.5), device="cpu")
-    eng.process_frame(frames[0])
-    if layout == "sharded":
-        eng.state = shard_engine_state(eng.state, make_mesh(2, "cpu"))
-    for f in frames[1:]:
-        eng.process_frame(f)
-    # frame 1 initialises the map: no fuse/clean pass
-    assert eng.stats()["fuse_graph"] == dict(captures=0, replays=0, eager=2, evictions=0)
 
 
 def _slot_call(M: int):
@@ -138,8 +126,9 @@ def _key_args():
 
 
 def _key(stores, m, x, statics):
+    """As `_fuse_clean_all` keys slot m's pass."""
     leaves, spec = pytree.tree_flatten(x)
-    return te.fuse_graph_key(stores, m, leaves, spec, statics)
+    return graphs.key("fuse_clean", leaves, spec, (m, *statics.items()), stores)
 
 
 def _changed(change):
@@ -196,16 +185,6 @@ def test_fuse_graph_key_equal_for_settings_built_afresh():
     assert hash(_key(stores, 0, fresh, again)) == hash(_key(stores, 0, x, statics))
 
 
-def test_lru_bound_evicts_and_counts():
-    cache = FuseGraphs(2)
-    keys = [("family", k) for k in range(cache.held + 2)]
-    for k in keys:
-        assert cache.admit(k) is None
-    assert list(cache._families) == keys[2:]
-    assert cache.admit(keys[2]) == {} and list(cache._families)[-1] == keys[2]
-    assert cache.counts() == dict(captures=0, replays=0, eager=0, evictions=2)
-
-
 def _addresses(stores) -> list:
     return [t.data_ptr() for t in stores]
 
@@ -243,42 +222,6 @@ def test_step_keeps_active_tier_addresses(mode):
 # on the card
 
 
-@pytest.fixture(scope="module")
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: CUDA graphs capture only there")
-    return torch.device("cuda")
-
-
-class _Eager(FuseGraphs):
-    """The same pass, run eagerly on every call."""
-
-    def run(self, stores, m, x, statics, phase):
-        return te._fuse_clean_slot(stores, m, x, phase=phase, **statics)
-
-
-def _leaves(eng: CoFusion) -> list:
-    """(name, tensor) for every tensor of the engine's state and last outputs."""
-    out = []
-
-    def walk(name, v):
-        if isinstance(v, torch.Tensor):
-            out.append((name, v))
-        elif isinstance(v, tuple) and hasattr(v, "_fields"):
-            for f, a in zip(v._fields, v):
-                walk(f"{name}.{f}", a)
-
-    walk("state", eng.state)
-    walk("outputs", eng._last_outputs)
-    return out
-
-
-def _diff(a: CoFusion, b: CoFusion) -> list:
-    la, lb = _leaves(a), _leaves(b)
-    assert [n for n, _ in la] == [n for n, _ in lb]
-    return [n for (n, x), (_, y) in zip(la, lb) if not torch.equal(x, y)]
-
-
 def _card_cfg(M: int) -> CoFusionConfig:
     return CoFusionConfig(camera=CameraConfig(), max_models=M, max_surfels=1 << 20)
 
@@ -298,29 +241,21 @@ SCENARIOS = {
 }
 
 
-def _pair(card, settings):
-    settings = dict(settings)
-    cfg = settings.pop("cfg")
-    graphed, eager = (CoFusion(cfg, device=card, **settings) for _ in range(2))
-    eager.fuse_graphs = _Eager(cfg.max_models)
-    return graphed, eager
-
-
 @pytest.fixture(scope="module", params=list(SCENARIOS))
 def run(request, card):
     """Both engines over the scenario's frames: per frame the state leaves
     that differ, the graphed engine's counters and the active flags; a map
     downloaded at frame 6, and again after frames 7 and 8."""
     frames, settings = SCENARIOS[request.param]()
-    graphed, eager = _pair(card, settings)
+    graphed, eager = pair(card, settings)
     diffs, counts, active = [], [], []
     kept = None
     for i, f in enumerate(frames):
         graphed.process_frame(f)
         eager.process_frame(f)
         torch.cuda.synchronize()
-        diffs.append(_diff(graphed, eager))
-        counts.append(graphed.fuse_graphs.counts())
+        diffs.append(diff(graphed, eager))
+        counts.append(graphed.graphs.counts("fuse_clean"))
         active.append(graphed.state.models.active.cpu().numpy())
         if i == 6:
             kept = graphed.download_model(0)
@@ -357,36 +292,20 @@ def test_downloaded_map_unchanged_by_next_replays(run):
 @pytest.mark.parametrize("scenario", ["static_m1", "gtmask_m4"])
 def test_new_outlier_coeff_recaptures(card, scenario):
     frames, settings = SCENARIOS[scenario]()
-    graphed, eager = _pair(card, settings)
+    graphed, eager = pair(card, settings)
     M = graphed.cfg.max_models
     for i, f in enumerate(frames[:10]):
         if i == 5:
             for e in (graphed, eager):
                 e.set_params(outlier_coefficient=1.5)
-            before = graphed.fuse_graphs.counts()
+            before = graphed.graphs.counts("fuse_clean")
         graphed.process_frame(f)
         eager.process_frame(f)
-        assert _diff(graphed, eager) == [], f"frame {i}"
+        assert diff(graphed, eager) == [], f"frame {i}"
     # the new setting's first pass eager, then both phases captured anew
-    assert graphed.fuse_graphs.counts() == dict(
+    assert graphed.graphs.counts("fuse_clean") == dict(
         captures=before["captures"] + 2 * M, replays=before["replays"] + 4 * M,
         eager=before["eager"] + M, evictions=0)
-
-
-def test_capture_after_every_graph_evicted(card):
-    """Two settings that never capture push the only captured family out of
-    a one-slot cache (2 families held); the next capture starts a pool of
-    its own, as the allocator has released the one no graph holds."""
-    frames, settings = SCENARIOS["static_m1"]()
-    graphed, eager = _pair(card, settings)
-    for i, f in enumerate(frames[:10]):
-        if i in (5, 6):
-            for e in (graphed, eager):
-                e.set_params(outlier_coefficient=3.0 - 0.5 * (i - 4))
-        graphed.process_frame(f)
-        eager.process_frame(f)
-        assert _diff(graphed, eager) == [], f"frame {i}"
-    assert graphed.fuse_graphs.counts() == dict(captures=4, replays=6, eager=3, evictions=1)
 
 
 def test_sharded_state_runs_eager_on_the_card(card):

@@ -1,11 +1,11 @@
-"""`track_models` as a CUDA graph (`odometry.TrackGraphs`).
+"""`track_models` as a CUDA graph (the `tracking` stage of
+`graphs.StepGraphs`; what the cache does for every stage is in
+test_torch_graphs.py).
 
-On the CPU: a call through an engine's cache runs eagerly and counts as
-such, and two engines count their own calls; the cache key tells apart
-every setting a captured solve reads, the inputs' structure and the shape
-of every input field, and matches equal settings built afresh; the least
-recently used key is evicted past the capacity; the normal equations give
-each model its own system.
+On the CPU: the cache key tells apart every setting a captured solve
+reads, the inputs' structure and the shape of every input field, and
+matches equal settings built afresh; the normal equations give each
+model its own system.
 
 On the card only (skipped here; the fixture decides, so every machine
 collects the same tests), with the inputs the engine hands `track_models`
@@ -13,7 +13,8 @@ at 640x480, one model (the static cells') and four with GT-mask gates (the
 multi-model cells', every slot tracking the global model's map): graphed
 against eager bit for bit over consecutive calls with different inputs, a
 kept result unchanged by the next replay, a new `icp_weight` recaptured,
-and a graph unaffected when `_intrinsics`' cache drops the K it reads.
+and a graph unaffected when `_intrinsics`' cache drops the K it was
+handed.
 This file imports no JAX, so on the card it runs without the suite's
 conftest:
 
@@ -26,18 +27,21 @@ import pytest
 import torch
 import torch.utils._pytree as pytree
 
-from cofusion_tpu_torch.config import CameraConfig, CoFusionConfig, FusionParams, TrackingParams
+from cofusion_tpu_torch import graphs
+from cofusion_tpu_torch.config import CameraConfig, CoFusionConfig, TrackingParams
 from cofusion_tpu_torch.engine import CoFusion
+from cofusion_tpu_torch.graphs import StepGraphs
 from cofusion_tpu_torch.io.synthetic import make_multi_object_frames, make_sequence
 from cofusion_tpu_torch.ops import odometry as od
 from cofusion_tpu_torch.ops import preprocess as pp
+from torch_graphs_shared import card  # noqa: F401  (a fixture)
 
 SMALL = CameraConfig(width=160, height=128, fx=132.0, fy=132.0, cx=80.0, cy=64.0)
 
 
 def _zeros_inputs(M: int, cam: CameraConfig, levels: int = 3):
-    """`track_models`' tensor arguments at the given sizes, every field a
-    tensor as the engine hands them (values unused)."""
+    """The solve's tensor inputs at the given sizes, every field a tensor as
+    `track_models` hands them to the cache (values unused)."""
     shapes = [(cam.at_level(lv).height, cam.at_level(lv).width) for lv in range(levels)]
 
     def per_level(tail=(), lead=(), dtype=torch.float32, flat=False):
@@ -55,62 +59,16 @@ def _zeros_inputs(M: int, cam: CameraConfig, levels: int = 3):
         intensity=per_level(lead=(M,)), icp_pack=per_level((8,), (M,), flat=True),
         rgb_pack=per_level((2,), (M,), flat=True),
     )
+    intrinsics = tuple((torch.zeros((3, 3)), torch.zeros((3, 3))) for _ in shapes)
     return (torch.zeros((M, 4, 4)), frame, per_level(lead=(M,), dtype=torch.bool),
-            per_level(lead=(M,), dtype=torch.bool), model, torch.zeros(shapes[-1]))
+            per_level(lead=(M,), dtype=torch.bool), model, torch.zeros(shapes[-1]), intrinsics)
 
 
 def _key(M=1, cam=SMALL, cfg=None, params=None, w=10.0, inputs=None):
+    """As `track_models` keys its solve."""
     cfg = cfg or CoFusionConfig(camera=cam, max_models=M)
     leaves, spec = pytree.tree_flatten(inputs or _zeros_inputs(M, cam))
-    return od.graph_key(leaves, spec, (cam, cfg, params or TrackingParams(), w))
-
-
-def _track_args(cam=SMALL):
-    """One orbit frame tracked against the map of the first: (frame,
-    model, so3 reference), the model with no model axis."""
-    frames, _, _ = make_sequence(cam, 3, kind="orbit")
-    cfg = CoFusionConfig(camera=cam, max_models=1, max_surfels=1 << 12)
-    inten = [pp.rgb_to_intensity(torch.from_numpy(f["rgb"]).to(torch.float32)) for f in frames]
-    depth = [torch.from_numpy(f["depth"]) for f in frames]
-    frame = od.build_frame_pyramid(depth[2], inten[2], cam, cfg, 4.5)
-    vm, va = pp.compute_vmap(depth[0], cam, 4.5)
-    nm, na = pp.compute_nmap(vm, va)
-    model = od.build_model_pyramid(vm, nm, va & na, inten[0], torch.eye(4), cam, cfg)
-    return cfg, frame, model, pp.pyr_down_gauss(pp.pyr_down_gauss(inten[0]))
-
-
-@pytest.mark.parametrize("caller", ["track_models", "get_incremental_transformation"])
-def test_cpu_call_runs_eager(caller):
-    cfg, frame, model, so3_ref = _track_args()
-    args = (torch.eye(4)[None], frame, tuple(v[None] for v in frame.valid),
-            tuple(v[None] for v in frame.rgb_ok),
-            od.ModelPyramid(*(tuple(lv[None] for lv in field) for field in model)), so3_ref)
-    graphs = od.TrackGraphs()
-    if caller == "track_models":
-        res = od.track_models(*args, SMALL, cfg, TrackingParams(), graphs=graphs)
-    else:
-        res = od.get_incremental_transformation(torch.eye(4), frame, model, so3_ref, SMALL, cfg,
-                                                TrackingParams(), graphs=graphs)
-        res = od.OdometryResult(*(t[None] for t in res))
-    assert graphs.counts() == dict(captures=0, replays=0, eager=1, evictions=0)
-    ref = od._solve(*args, SMALL, cfg, TrackingParams(), TrackingParams().icp_weight)
-    for name, a, b in zip(od.OdometryResult._fields, res, ref):
-        assert torch.equal(a, b), name
-    assert res.icp_count[0] > 0
-
-
-def test_engines_count_their_own_calls():
-    cfg = CoFusionConfig(camera=SMALL, max_models=1, max_surfels=1 << 14, active_surfels=1 << 13)
-    frames, _, _ = make_sequence(SMALL, 3, kind="orbit")
-    a, b = (CoFusion(cfg, fusion_params=FusionParams(depth_cutoff=4.5), device="cpu")
-            for _ in range(2))
-    for f in frames:
-        a.process_frame(f)
-    b.process_frame(frames[0])
-    b.process_frame(frames[1])
-    # frame 1 initialises the map: no tracking
-    assert a.stats()["tracking_graph"] == dict(captures=0, replays=0, eager=2, evictions=0)
-    assert b.stats()["tracking_graph"] == dict(captures=0, replays=0, eager=1, evictions=0)
+    return graphs.key("tracking", leaves, spec, (cam, cfg, params or TrackingParams(), w))
 
 
 # every setting `_solve` and the terms it calls read
@@ -175,11 +133,12 @@ def test_graph_key_tells_apart_tf32(monkeypatch):
     assert _key() != base
 
 
-# every tensor field of `track_models`' inputs, by path
-_INPUT_FIELDS = ([("poses",), ("so3_ref",), ("valid_b",), ("rgb_ok_b",)]
+# every tensor field of the solve's inputs, by path
+_INPUT_FIELDS = ([("poses",), ("so3_ref",), ("valid_b",), ("rgb_ok_b",), ("intrinsics",)]
                  + [("frame", f) for f in od.FramePyramid._fields]
                  + [("model_b", f) for f in od.ModelPyramid._fields])
-_ARG = {"poses": 0, "frame": 1, "valid_b": 2, "rgb_ok_b": 3, "model_b": 4, "so3_ref": 5}
+_ARG = {"poses": 0, "frame": 1, "valid_b": 2, "rgb_ok_b": 3, "model_b": 4, "so3_ref": 5,
+        "intrinsics": 6}
 
 
 @pytest.mark.parametrize("field", _INPUT_FIELDS, ids=".".join)
@@ -189,7 +148,7 @@ def test_graph_key_reads_every_input_field(field):
     base = _zeros_inputs(1, SMALL)
     path = (_ARG[field[0]],) + field[1:]
     t = base[path[0]] if len(path) == 1 else getattr(base[path[0]], path[1])
-    if isinstance(t, tuple):  # per level: the finest level grows a row
+    while isinstance(t, tuple):  # per level (K, K^-1 a pair): the finest one grows a row
         path, t = path + (0,), t[0]
     grown = torch.cat([t, t[:1]])
     assert _key(inputs=_with(base, path, grown)) != _key(inputs=base)
@@ -214,15 +173,6 @@ def test_graph_key_equal_for_settings_built_afresh(caller):
     assert hash(_key(cfg=c1, params=p1)) == hash(_key(cfg=c2, params=p2))
 
 
-def test_lru_bound_evicts_and_counts():
-    cache = od.TrackGraphs()
-    keys = [_key(w=float(w)) for w in range(od.GRAPHS_HELD + 2)]
-    for k in keys:
-        cache.admit(k)
-    assert list(cache._graphs) == keys[2:]
-    assert cache.counts() == dict(captures=0, replays=0, eager=0, evictions=2)
-
-
 @pytest.mark.parametrize("M", [1, 4])
 def test_normal_equations_are_each_models_own(M):
     """`_reduce_system_b`: each model's system is its own rows'
@@ -242,13 +192,6 @@ def test_normal_equations_are_each_models_own(M):
 
 # ---------------------------------------------------------------------------
 # on the card
-
-
-@pytest.fixture(scope="module")
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: CUDA graphs capture only there")
-    return torch.device("cuda")
 
 
 def _record(engine: CoFusion, frames) -> list:
@@ -319,49 +262,57 @@ def _equal(a: od.OdometryResult, b: od.OdometryResult) -> list:
     return [n for n, x, y in zip(od.OdometryResult._fields, a, b) if not torch.equal(x, y)]
 
 
+def _graphed(cache: StepGraphs, inputs, statics) -> od.OdometryResult:
+    return od.track_models(*inputs, *statics, graphs=cache)
+
+
+def _eager(inputs, statics) -> od.OdometryResult:
+    return od.track_models(*inputs, *statics)
+
+
 def test_graphed_bit_equal_to_eager(calls):
-    cache = od.TrackGraphs()
+    cache = StepGraphs(1)
     for k, (inputs, statics) in enumerate(calls):
-        res = cache.run(inputs, statics)
-        assert _equal(res, od._solve(*inputs, *statics)) == [], f"call {k}"
-    assert cache.counts() == dict(captures=1, replays=len(calls) - 1, eager=1, evictions=0)
+        assert _equal(_graphed(cache, inputs, statics), _eager(inputs, statics)) == [], f"call {k}"
+    assert cache.counts("tracking") == dict(captures=1, replays=len(calls) - 1, eager=1,
+                                            evictions=0)
     # the inputs differ from call to call, so a stale copy-in would show
     assert not torch.equal(calls[1][0][1].depth[0], calls[2][0][1].depth[0])
 
 
 def test_kept_result_survives_next_replay(calls):
-    cache = od.TrackGraphs()
-    cache.run(*calls[0])
-    kept = cache.run(*calls[1])
+    cache = StepGraphs(1)
+    _graphed(cache, *calls[0])
+    kept = _graphed(cache, *calls[1])
     copy = od.OdometryResult(*(t.clone() for t in kept))
-    cache.run(*calls[2])
+    _graphed(cache, *calls[2])
     assert _equal(kept, copy) == []
-    assert _equal(kept, od._solve(*calls[1][0], *calls[1][1])) == []
+    assert _equal(kept, _eager(*calls[1])) == []
 
 
 def test_new_icp_weight_recaptures(calls):
-    cache = od.TrackGraphs()
+    cache = StepGraphs(1)
     for inputs, statics in calls[:2]:
-        cache.run(inputs, statics)
+        _graphed(cache, inputs, statics)
     for inputs, statics in calls[2:5]:
         statics = statics[:3] + (statics[3] * 0.5,)
-        assert _equal(cache.run(inputs, statics), od._solve(*inputs, *statics)) == []
-    assert cache.counts() == dict(captures=2, replays=3, eager=2, evictions=0)
+        assert _equal(_graphed(cache, inputs, statics), _eager(inputs, statics)) == []
+    assert cache.counts("tracking") == dict(captures=2, replays=3, eager=2, evictions=0)
     inputs, statics = calls[0]  # the first weight's graph, still held
-    assert _equal(cache.run(inputs, statics), od._solve(*inputs, *statics)) == []
-    assert cache.counts()["replays"] == 4
+    assert _equal(_graphed(cache, inputs, statics), _eager(inputs, statics)) == []
+    assert cache.counts("tracking")["replays"] == 4
 
 
 def test_graph_survives_dropped_intrinsics(calls):
-    """The graph reads K and K^-1 by address: when `_intrinsics`' cache
-    drops them and their memory is handed out again, a replay still reads
-    the right ones."""
-    cache = od.TrackGraphs()
-    cache.run(*calls[0])
-    cache.run(*calls[1])  # captured
+    """The graph reads its own copies of K and K^-1: when `_intrinsics`'
+    cache drops the ones it was handed and their memory is handed out
+    again, a replay still reads the right ones."""
+    cache = StepGraphs(1)
+    _graphed(cache, *calls[0])
+    _graphed(cache, *calls[1])  # captured
     od._intrinsics.cache_clear()
     junk = [torch.full((3, 3), float("nan"), device=calls[0][0][0].device) for _ in range(64)]
     inputs, statics = calls[2]
-    res = cache.run(inputs, statics)
-    assert _equal(res, od._solve(*inputs, *statics)) == []
+    res = _graphed(cache, inputs, statics)
+    assert _equal(res, _eager(inputs, statics)) == []
     del junk

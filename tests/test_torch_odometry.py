@@ -139,7 +139,8 @@ def test_so3_prealign_matches(pair, small_cam, tcam):
     cur = np.array(jpp.pyr_down_gauss(jpp.pyr_down_gauss(jnp.asarray(intensity1))))
     cam2 = small_cam.at_level(2)
     Rj, ej = jax.jit(jod._so3_prealign, static_argnums=(2, 3))(jnp.asarray(so3_ref), jnp.asarray(cur), cam2, 10)
-    Rt, et = tod._so3_prealign(_t(so3_ref), _t(cur), tcam.at_level(2), 10)
+    intrinsics = tod._intrinsics(tcam.at_level(2), torch.device("cpu"))
+    Rt, et = tod._so3_prealign(_t(so3_ref), _t(cur), intrinsics, 10)
     np.testing.assert_allclose(Rt.numpy(), np.asarray(Rj), atol=1e-5)
     np.testing.assert_allclose(et.numpy(), np.asarray(ej), rtol=1e-4)
 
